@@ -14,7 +14,7 @@
 // produce bit-identical trees (verified by tests/test_native_bvh.py).
 //
 // Exposed via ctypes (tpu_pathtracer/accel/native.py).  Build:
-//   g++ -O3 -fPIC -shared -o libtpu_pt.so bvh_builder.cpp
+//   g++ -O3 -fPIC -shared -o libpathtracer.so bvh_builder.cpp
 
 #include <algorithm>
 #include <cstdint>
@@ -57,7 +57,7 @@ extern "C" {
 
 // Outputs must be sized for 2n-1 nodes.  Returns node count (2n-1), or 0 for
 // an empty scene, or -1 on error.
-int64_t tpu_pt_bvh_build(const float *p0, const float *p1, const float *p2,
+int64_t pt_bvh_build(const float *p0, const float *p1, const float *p2,
                          int64_t n, float *out_min, float *out_max,
                          int32_t *out_left, int32_t *out_right,
                          int32_t *out_tri, int32_t *out_leaf) {
@@ -206,10 +206,10 @@ int64_t tpu_pt_bvh_build(const float *p0, const float *p1, const float *p2,
 
 // DFS-preorder skip-link relayout (the device traversal layout; see
 // tpu_pathtracer/accel/bvh.py flat_to_links).  Inputs are the BFS flat
-// arrays from tpu_pt_bvh_build; outputs sized k.  `miss[i]` is the node to
+// arrays from pt_bvh_build; outputs sized k.  `miss[i]` is the node to
 // jump to when the subtree at i is skipped; the terminator is
 // `end_sentinel`.  Returns the node count written (== k).
-int64_t tpu_pt_bvh_links(const float *in_min, const float *in_max,
+int64_t pt_bvh_links(const float *in_min, const float *in_max,
                          const int32_t *in_left, const int32_t *in_right,
                          const int32_t *in_tri, const int32_t *in_leaf,
                          int64_t k, int64_t end_sentinel, float *out_min,

@@ -1262,12 +1262,12 @@ int64_t guarded(Fn &&fn) noexcept {
 
 extern "C" {
 
-const char *tpu_pt_draco_last_error() { return g_error.c_str(); }
+const char *pt_draco_last_error() { return g_error.c_str(); }
 
 // --- decode-to-handle API: one full parse, then cheap accessor reads ------
 
-// Returns an opaque handle (free with tpu_pt_draco_close) or NULL on error.
-void *tpu_pt_draco_open(const uint8_t *buf, int64_t len) {
+// Returns an opaque handle (free with pt_draco_close) or NULL on error.
+void *pt_draco_open(const uint8_t *buf, int64_t len) {
   void *out = nullptr;
   guarded([&]() -> int64_t {
     auto m = new DecodedMesh();
@@ -1281,12 +1281,12 @@ void *tpu_pt_draco_open(const uint8_t *buf, int64_t len) {
   return out;
 }
 
-void tpu_pt_draco_close(void *h) {
+void pt_draco_close(void *h) {
   delete static_cast<DecodedMesh *>(h);
 }
 
 // info[0]=num_points, info[1]=num_faces, info[2]=num_attributes
-int64_t tpu_pt_draco_h_info(void *h, int64_t *info) {
+int64_t pt_draco_h_info(void *h, int64_t *info) {
   return guarded([&]() -> int64_t {
     const auto &m = *static_cast<DecodedMesh *>(h);
     info[0] = m.num_points;
@@ -1297,7 +1297,7 @@ int64_t tpu_pt_draco_h_info(void *h, int64_t *info) {
 }
 
 // out[0]=unique_id, out[1]=att_type, out[2]=data_type, out[3]=components
-int64_t tpu_pt_draco_h_attr_info(void *h, int64_t j, int64_t *out) {
+int64_t pt_draco_h_attr_info(void *h, int64_t j, int64_t *out) {
   return guarded([&]() -> int64_t {
     const auto &m = *static_cast<DecodedMesh *>(h);
     if (j < 0 || j >= (int64_t)m.attrs.size()) {
@@ -1313,7 +1313,7 @@ int64_t tpu_pt_draco_h_attr_info(void *h, int64_t j, int64_t *out) {
 }
 
 // out must hold 3*num_faces uint32
-int64_t tpu_pt_draco_h_indices(void *h, uint32_t *out) {
+int64_t pt_draco_h_indices(void *h, uint32_t *out) {
   return guarded([&]() -> int64_t {
     const auto &m = *static_cast<DecodedMesh *>(h);
     std::memcpy(out, m.indices.data(), m.indices.size() * 4);
@@ -1322,7 +1322,7 @@ int64_t tpu_pt_draco_h_indices(void *h, uint32_t *out) {
 }
 
 // out must hold num_points*components float32 for attribute j
-int64_t tpu_pt_draco_h_attr_f32(void *h, int64_t j, float *out) {
+int64_t pt_draco_h_attr_f32(void *h, int64_t j, float *out) {
   return guarded([&]() -> int64_t {
     const auto &m = *static_cast<DecodedMesh *>(h);
     if (j < 0 || j >= (int64_t)m.attrs.size()) {
@@ -1338,7 +1338,7 @@ int64_t tpu_pt_draco_h_attr_f32(void *h, int64_t j, float *out) {
 // --- legacy one-shot API (kept for compatibility; each call re-parses) ----
 
 // info[0]=num_points, info[1]=num_faces, info[2]=num_attributes
-int64_t tpu_pt_draco_info(const uint8_t *buf, int64_t len, int64_t *info) {
+int64_t pt_draco_info(const uint8_t *buf, int64_t len, int64_t *info) {
   return guarded([&]() -> int64_t {
     DecodedMesh m;
     if (!decode_stream(buf, len, m)) return -1;
@@ -1350,7 +1350,7 @@ int64_t tpu_pt_draco_info(const uint8_t *buf, int64_t len, int64_t *info) {
 }
 
 // out[0]=unique_id, out[1]=att_type, out[2]=data_type, out[3]=components
-int64_t tpu_pt_draco_attr_info(const uint8_t *buf, int64_t len, int64_t j,
+int64_t pt_draco_attr_info(const uint8_t *buf, int64_t len, int64_t j,
                                int64_t *out) {
   return guarded([&]() -> int64_t {
     DecodedMesh m;
@@ -1368,7 +1368,7 @@ int64_t tpu_pt_draco_attr_info(const uint8_t *buf, int64_t len, int64_t j,
 }
 
 // out must hold 3*num_faces uint32
-int64_t tpu_pt_draco_indices(const uint8_t *buf, int64_t len, uint32_t *out) {
+int64_t pt_draco_indices(const uint8_t *buf, int64_t len, uint32_t *out) {
   return guarded([&]() -> int64_t {
     DecodedMesh m;
     if (!decode_stream(buf, len, m)) return -1;
@@ -1378,7 +1378,7 @@ int64_t tpu_pt_draco_indices(const uint8_t *buf, int64_t len, uint32_t *out) {
 }
 
 // out must hold num_points*components float32 for attribute j
-int64_t tpu_pt_draco_attr_f32(const uint8_t *buf, int64_t len, int64_t j,
+int64_t pt_draco_attr_f32(const uint8_t *buf, int64_t len, int64_t j,
                               float *out) {
   return guarded([&]() -> int64_t {
     DecodedMesh m;
@@ -1396,15 +1396,15 @@ int64_t tpu_pt_draco_attr_f32(const uint8_t *buf, int64_t len, int64_t j,
 // Encode pos (n,3) [+ optional nrm (n,3)] with faces idx (f,3).
 // qpos/qnrm: quantization bits, 0 = raw float32.  Returns byte size written
 // to out (capacity cap), or -1 (error) / required size if cap too small.
-int64_t tpu_pt_draco_encode2(const float *pos, const float *nrm, int64_t n,
+int64_t pt_draco_encode2(const float *pos, const float *nrm, int64_t n,
                              const uint32_t *idx, int64_t f, int64_t qpos,
                              int64_t qnrm, int64_t method, int64_t rans,
                              uint8_t *out, int64_t cap);
 
-int64_t tpu_pt_draco_encode(const float *pos, const float *nrm, int64_t n,
+int64_t pt_draco_encode(const float *pos, const float *nrm, int64_t n,
                             const uint32_t *idx, int64_t f, int64_t qpos,
                             int64_t qnrm, uint8_t *out, int64_t cap) {
-  return tpu_pt_draco_encode2(pos, nrm, n, idx, f, qpos, qnrm, 0, 0, out,
+  return pt_draco_encode2(pos, nrm, n, idx, f, qpos, qnrm, 0, 0, out,
                               cap);
 }
 
@@ -1412,7 +1412,7 @@ int64_t tpu_pt_draco_encode(const float *pos, const float *nrm, int64_t n,
 // (closed 2-manifold genus-0 components, every vertex referenced),
 // silently falling back to sequential otherwise — byte 8 of the output
 // names the method actually used.  rans: 1 = rANS-code quantized values.
-int64_t tpu_pt_draco_encode2(const float *pos, const float *nrm, int64_t n,
+int64_t pt_draco_encode2(const float *pos, const float *nrm, int64_t n,
                              const uint32_t *idx, int64_t f, int64_t qpos,
                              int64_t qnrm, int64_t method, int64_t rans,
                              uint8_t *out, int64_t cap) {

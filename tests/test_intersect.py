@@ -107,6 +107,25 @@ def test_empty_scene_misses():
     assert not np.asarray(h.hit).any()
 
 
+@pytest.mark.parametrize("ray_batch", [128, 100, 65536])
+def test_fat_bvh_ray_batches_match_one_batch(ray_batch):
+    """Sub-batching the walk (lax.map over equal batches) gives the
+    unbatched result bit for bit; a batch that does not divide the ray
+    count, or exceeds it, runs as one batch."""
+    from tpu_pathtracer.ops.intersect import bvh_fat_intersect
+
+    sd = _random_soup_scene(n=200, seed=5)
+    rs = np.random.RandomState(8)
+    ro = jnp.asarray(rs.uniform(-3, 3, (512, 3)).astype(np.float32))
+    rd = rs.randn(512, 3).astype(np.float32)
+    rd = jnp.asarray(rd / np.linalg.norm(rd, axis=-1, keepdims=True))
+    ref = bvh_fat_intersect(sd.packed.fat_nodes, ro, rd, ray_batch=0)
+    got = bvh_fat_intersect(sd.packed.fat_nodes, ro, rd, ray_batch=ray_batch)
+    assert np.asarray(ref.hit).sum() > 30
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 def test_fat_bvh_matches_skip_link():
     """bvh8 (fat-leaf, 8 triangles inlined per node row) vs the 1-tri-leaf
     skip-link walk: identical hit masks and distances; triangle choices may

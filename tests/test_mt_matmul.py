@@ -1,4 +1,4 @@
-"""Parity tests for the MXU Möller–Trumbore intersector (ops/mt_matmul.py)
+"""Parity tests for the all-pairs Möller–Trumbore intersector (ops/mt_matmul.py)
 against the gather traversal and the all-pairs scan oracle.
 
 Contract under test: identical hit decisions to intersect.ray_triangle
@@ -156,33 +156,13 @@ def test_mt_lowest_index_tie_break():
     assert np.all(np.asarray(h.tri) == 0)
 
 
-def test_mt_pallas_interpret_parity():
-    """The fused Pallas kernel (interpret mode on CPU) matches the XLA MT
-    intersector on hit masks, triangles, and (t, u, v) — incl. unaligned
-    R/N (ray-lane and triangle-chunk padding paths)."""
-    from tpu_pathtracer.ops.pallas.mt_intersect import mt_intersect_pallas
-
-    rng = np.random.default_rng(21)
-    tri = random_tri_pos(rng, 200)
-    ro, rd = random_rays(rng, 300)
-    ha = mt_intersect(tri, ro, rd)
-    hb = mt_intersect_pallas(tri, ro, rd, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ha.hit), np.asarray(hb.hit))
-    m = np.asarray(ha.hit)
-    assert m.sum() > 30
-    np.testing.assert_array_equal(np.asarray(ha.tri)[m], np.asarray(hb.tri)[m])
-    np.testing.assert_allclose(np.asarray(ha.t)[m], np.asarray(hb.t)[m], rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(ha.u)[m], np.asarray(hb.u)[m], rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(ha.v)[m], np.asarray(hb.v)[m], rtol=1e-4, atol=1e-5)
-
-
 def test_resolve_intersector():
     from tpu_pathtracer.ops.trace import MT_AUTO_MAX_TRIS, resolve_intersector
 
-    assert resolve_intersector("auto", 2048) in ("mt", "mt_pallas")
+    assert resolve_intersector("auto", 2048) == "mt"  # tests run on the CPU
     assert resolve_intersector("auto", MT_AUTO_MAX_TRIS + 1) == "bvh8"
     assert resolve_intersector("bvh", 16) == "bvh"
-    assert resolve_intersector("mt_pallas", 16) == "mt_pallas"
+    assert resolve_intersector("mt_pallas", 16, "gpu") == "mt_pallas"
     assert resolve_intersector("bvh8", 16) == "bvh8"
     with pytest.raises(ValueError):
         resolve_intersector("nope", 16)
@@ -212,26 +192,3 @@ def test_mt_diff_gradients_match_bvh_diff():
     g_bvh = jax.grad(loss_bvh)(ro)
     np.testing.assert_allclose(np.asarray(g_mt), np.asarray(g_bvh), rtol=1e-5, atol=1e-6)
     assert np.abs(np.asarray(g_mt)).sum() > 0
-
-
-def test_mt_stream_interpret_parity():
-    """The HBM-streamed kernel variant matches the XLA MT intersector
-    (chunk-major layout, revisited-output best state, j==0 init)."""
-    from tpu_pathtracer.ops.pallas.mt_intersect import mt_intersect_stream
-
-    rng = np.random.default_rng(17)
-    tri = random_tri_pos(rng, 700)  # several chunks, unaligned
-    ro, rd = random_rays(rng, 1300)
-    ha = mt_intersect(tri, ro, rd)
-    hb = mt_intersect_stream(tri, ro, rd, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ha.hit), np.asarray(hb.hit))
-    m = np.asarray(ha.hit)
-    assert m.sum() > 100
-    np.testing.assert_array_equal(np.asarray(ha.tri)[m], np.asarray(hb.tri)[m])
-    # grazing near-zero-t hits re-associate slightly differently
-    np.testing.assert_allclose(np.asarray(ha.t)[m], np.asarray(hb.t)[m],
-                               rtol=5e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(ha.u)[m], np.asarray(hb.u)[m],
-                               rtol=1e-3, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(ha.v)[m], np.asarray(hb.v)[m],
-                               rtol=1e-3, atol=1e-4)

@@ -30,8 +30,7 @@ W = H = 16
 ASPECT = 1.0
 
 
-@pytest.fixture(scope="module")
-def scene_data():
+def make_scene_data():
     white = Material(color=(1, 1, 1), roughness=1.0, metalness=0.0)
     sc = Scene()
     p, n, i = primitives.plane(4, 4)
@@ -40,6 +39,11 @@ def scene_data():
     sc.add(Mesh(p, n, i, white, transform=translation(0, 0.4, 0)))
     sc.set_environment(gradient_sky(16, 32))
     return sc.compile()
+
+
+@pytest.fixture(scope="module")
+def scene_data():
+    return make_scene_data()
 
 
 def _params(frame=1):
@@ -220,7 +224,7 @@ def test_sharded_render_all_matches_stepwise(scene_data):
 
 
 def test_two_process_distributed_render(tmp_path):
-    """REAL multi-process evidence (VERDICT r1 item 4): two OS processes
+    """REAL multi-process evidence: two OS processes
     rendezvous through jax.distributed (gloo CPU collectives), each drives
     4 of the 8 global devices of the ('tiles','samples') mesh, and their
     combined row bands are BIT-IDENTICAL to the single-process sharded
@@ -277,7 +281,7 @@ def test_two_process_distributed_render(tmp_path):
 
 
 def test_sample_shard_estimator_converges_to_sequential(scene_data):
-    """Convergence check (r1 verdict 'weak 7'): accumulating many frames,
+    """Convergence check: accumulating many frames,
     the sample-sharded estimator must converge to the SEQUENTIAL estimator's
     converged image — a subtle bias in the decorrelated sample streams would
     leave a persistent gap that no frame count shrinks."""
@@ -310,8 +314,7 @@ def test_sample_shard_estimator_converges_to_sequential(scene_data):
 
 def test_sharded_render_all_one_program_all_counts(scene_data):
     """render_all's frame count is a traced fori_loop bound: different
-    counts must reuse ONE compiled program (round-4's '>20 min sharded
-    compile' was a fresh static program per count — BASELINE.md r5)."""
+    counts must reuse ONE compiled program."""
     from tpu_pathtracer.parallel import make_sharded_render_all
 
     mesh = make_mesh(tiles=2, samples=1)

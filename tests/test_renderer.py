@@ -209,38 +209,3 @@ def test_sharded_renderer_save_load(tmp_path):
     r.render_all(); r2.render_all()
     np.testing.assert_allclose(
         np.asarray(r2.accumulation), np.asarray(r.accumulation), atol=1e-7)
-
-
-def test_perf_knob_configs_produce_distinct_steps():
-    """RenderConfig.sort_bounces/tile_rays flow into the step cache key:
-    toggling them retraces (distinct jitted step), toggling back reuses
-    the cached one (round-3 verdict item 5)."""
-    import dataclasses
-
-    r = _make(frames=2, w=16, h=16)
-    base_cfg = r.config
-    s0 = r._step
-    r.config = dataclasses.replace(base_cfg, sort_bounces=0)
-    assert r._step is not s0
-    s1 = r._step
-    r.config = dataclasses.replace(base_cfg, tile_rays=256)
-    assert r._step is not s0 and r._step is not s1
-    r.config = base_cfg  # toggle back: cache hit
-    assert r._step is s0
-    # the knob-bearing configs still render
-    r.config = dataclasses.replace(base_cfg, sort_bounces=0, tile_rays=256)
-    r.reset()
-    r.render_all()
-    assert np.isfinite(np.asarray(r.display())).all()
-
-
-def test_tile_rays_validation():
-    import pytest
-
-    from tpu_pathtracer.ops.pallas.mt_shade import _tile_rays
-
-    for bad in (0, -128, 100, 129):
-        with pytest.raises(ValueError):
-            _tile_rays(bad)
-    assert _tile_rays(256) == 256
-    assert _tile_rays(None) > 0

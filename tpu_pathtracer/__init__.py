@@ -1,15 +1,14 @@
-"""tpu_pathtracer: a TPU-native, differentiable, progressive path-tracing
-framework built from scratch in JAX/XLA/Pallas.
+"""tpu_pathtracer: a differentiable, progressive path-tracing framework
+built from scratch in JAX/XLA/Pallas, running on NVIDIA GPUs.
 
 Capability surface mirrors the reference WebGPU path tracer
-(umar-ahmed/webgpu-pathtracer, mounted read-only at /root/reference; see
-SURVEY.md): thin-lens camera with DoF + AA, SAH BVH + Möller–Trumbore,
+(umar-ahmed/webgpu-pathtracer; see SURVEY.md): thin-lens camera with DoF + AA, SAH BVH + Möller–Trumbore,
 multi-bounce indirect lighting, equirect environment lighting with CDF
 importance-sampling infrastructure, progressive accumulation with
 start/pause/reset, ACES/Reinhard tone-mapping, bilateral denoise, resolution
-scaling, glTF import, per-kernel timing — plus the TPU-native additions:
-Pallas kernels for the hot path, multi-device sharding via shard_map, and
-end-to-end differentiability.
+scaling, glTF import, per-kernel timing — plus additions: a fused GPU
+intersection kernel for the hot path, multi-device sharding via shard_map,
+and end-to-end differentiability.
 """
 
 from .config import PostConfig, RenderConfig, ShardConfig, Tonemap

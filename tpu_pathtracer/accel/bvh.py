@@ -179,7 +179,7 @@ def flat_to_links(flat: Dict[str, np.ndarray], end: int | None = None,
                   native: bool = True) -> Dict[str, np.ndarray]:
     """Re-lay the flat BFS BVH in DFS preorder with skip links.
 
-    This is the TPU-native traversal layout: a ray walks nodes with a single
+    This is the device traversal layout: a ray walks nodes with a single
     pointer — on AABB hit at an internal node it advances to `i + 1` (the
     first child, contiguous in preorder), otherwise it jumps to `miss[i]`
     (the next node in preorder that is not in i's subtree).  Leaves test
@@ -244,12 +244,11 @@ def links_to_fat(links: Dict[str, np.ndarray], packed_tri_pos: np.ndarray,
     """Collapse the 1-triangle-leaf skip-link BVH into a fat-leaf layout and
     pack each node's box AND its leaf triangles into ONE wide row.
 
-    TPU rationale (docs/DESIGN_NOTES.md): the traversal's cost is per-STEP
-    gathers (~3.2 ns/ray/step, independent of row width up to 128 f32), so
-    a leaf holding up to `max_leaf` triangles inline cuts both the node
-    count (~max_leaf x fewer leaves) and the per-visit gather count (box +
-    all triangles in one row), with the extra triangle tests nearly free on
-    the VPU.
+    The lockstep traversal pays per STEP (one row gather per ray per
+    visited node), so a leaf holding up to `max_leaf` triangles inline
+    cuts both the node count (~max_leaf x fewer leaves) and the per-visit
+    gather count (box + all triangles in one row); the extra triangle
+    tests are cheap elementwise work.
 
     Works on the DFS-preorder skip-link arrays from `flat_to_links` (before
     padding): a node's subtree is the contiguous span [i, skip(i)), and the

@@ -37,7 +37,7 @@ def _find_src() -> Optional[str]:
 _SRC = _find_src()
 _BUILD_DIR = (os.path.join(os.path.dirname(_SRC), "build") if _SRC
               else os.path.join(os.path.dirname(__file__), "build"))
-_SO = os.path.join(_BUILD_DIR, "libtpu_pt.so")
+_SO = os.path.join(_BUILD_DIR, "libpathtracer.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -46,7 +46,10 @@ _tried = False
 
 def _compile() -> bool:
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-o", _SO, _SRC]
+    # build beside the target and rename: another process may load _SO
+    # while this one compiles it
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-o", tmp, _SRC]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired):
@@ -55,6 +58,7 @@ def _compile() -> bool:
         print(f"[tpu_pathtracer] native BVH build failed:\n{proc.stderr}",
               file=sys.stderr)
         return False
+    os.replace(tmp, _SO)
     return True
 
 
@@ -65,7 +69,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if os.environ.get("TPU_PT_NO_NATIVE"):
+        if os.environ.get("PATHTRACER_NO_NATIVE"):
             return None
         try:
             if _SRC is None:
@@ -87,12 +91,12 @@ def get_lib() -> Optional[ctypes.CDLL]:
             np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
             np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
         )
-        lib.tpu_pt_bvh_build.restype = i64
-        lib.tpu_pt_bvh_build.argtypes = [
+        lib.pt_bvh_build.restype = i64
+        lib.pt_bvh_build.argtypes = [
             f32p, f32p, f32p, i64, f32p, f32p, i32p, i32p, i32p, i32p,
         ]
-        lib.tpu_pt_bvh_links.restype = i64
-        lib.tpu_pt_bvh_links.argtypes = [
+        lib.pt_bvh_links.restype = i64
+        lib.pt_bvh_links.argtypes = [
             f32p, f32p, i32p, i32p, i32p, i32p, i64, i64,
             f32p, f32p, i32p, i32p,
         ]
@@ -127,7 +131,7 @@ def build_bvh_flat_native(p0, p1, p2) -> Optional[Dict[str, np.ndarray]]:
         "tri": np.empty((k,), np.int32),
         "is_leaf": np.empty((k,), np.int32),
     }
-    got = lib.tpu_pt_bvh_build(
+    got = lib.pt_bvh_build(
         p0, p1, p2, n, out["min"], out["max"], out["left"], out["right"],
         out["tri"], out["is_leaf"],
     )
@@ -156,7 +160,7 @@ def flat_to_links_native(flat: Dict[str, np.ndarray], end: int | None = None
         "tri": np.empty((k,), np.int32),
         "miss": np.empty((k,), np.int32),
     }
-    got = lib.tpu_pt_bvh_links(
+    got = lib.pt_bvh_links(
         np.ascontiguousarray(flat["min"], np.float32),
         np.ascontiguousarray(flat["max"], np.float32),
         np.ascontiguousarray(flat["left"], np.int32),

@@ -1,4 +1,4 @@
-"""Command-line harness: the TPU-native replacement for the reference's
+"""Command-line harness: the replacement for the reference's
 browser UI shell (reference: src/main.ts — Tweakpane panel, screenshot
 button, progress bar, device diagnostic).
 
@@ -25,6 +25,8 @@ import time
 
 
 def _add_render_args(p: argparse.ArgumentParser) -> None:
+    from .config import INTERSECTORS
+
     p.add_argument("--scene", default="default",
                    help="'default' (plane+box+sphere, src/main.ts:49-75) or a .glb/.gltf path")
     p.add_argument("--env", default="gradient",
@@ -48,11 +50,12 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--aperture", type=float, default=0.0)
     p.add_argument("--env-importance", action="store_true",
                    help="enable CDF importance sampling of the environment")
-    p.add_argument("--intersector", choices=["auto", "mt", "mt_pallas", "mt_stream", "bvh", "bvh8"],
+    p.add_argument("--intersector", choices=list(INTERSECTORS),
                    default="auto",
-                   help="intersection backend: MXU Möller–Trumbore (mt / fused"
-                        " mt_pallas) or skip-link BVH traversal; auto picks by"
-                        " scene size and backend")
+                   help="intersection backend: all-pairs Möller–Trumbore (mt,"
+                        " or mt_pallas: the fused GPU kernel) or BVH"
+                        " traversal (bvh, bvh8); auto picks by scene size"
+                        " and backend")
     p.add_argument("--blue-noise", action="store_true",
                    help="blue-noise low-discrepancy AA jitter (lower "
                         "low-frequency error at small sample counts)")
@@ -207,7 +210,7 @@ def cmd_benchmark(args) -> int:
 
     import jax
 
-    from .render.benchmark import bench_config, headline_record
+    from .render.benchmark import bench_config, device_info, headline_record
 
     r = _build_renderer(args)
     scene_data = jax.device_put(r.scene_data)
@@ -217,7 +220,7 @@ def cmd_benchmark(args) -> int:
         bounces=args.bounces, aspect=args.width / args.height,
         reps=args.reps, log=lambda s: print(s, file=sys.stderr),
     )
-    print(json.dumps(headline_record(res, jax.default_backend())))
+    print(json.dumps(headline_record(res, device_info())))
     return 0
 
 
@@ -368,7 +371,7 @@ def main(argv=None) -> int:
     enable_compilation_cache()
     parser = argparse.ArgumentParser(
         prog="tpu_pathtracer",
-        description="TPU-native progressive path tracer",
+        description="Differentiable progressive path tracer (JAX)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 

@@ -18,6 +18,10 @@ import dataclasses
 import enum
 
 
+# Intersector names a user may choose (ops/trace.resolve_intersector).
+INTERSECTORS = ("auto", "mt", "mt_pallas", "bvh", "bvh8")
+
+
 class Tonemap(enum.IntEnum):
     """Tone-mapping operator (reference: src/passes/shaders/fullscreen.wgsl:5-7)."""
 
@@ -45,25 +49,15 @@ class RenderConfig:
     max_bounces: int = 4
     seed: int = 123456789  # SEED constant, raytrace.wgsl:1
     accumulate: bool = True
-    # Intersection backend: 'auto' (by scene size, ops/trace.resolve_intersector),
-    # 'mt' (MXU all-pairs Möller–Trumbore), or 'bvh' (skip-link gather traversal).
+    # Intersection backend (INTERSECTORS): 'auto' picks by scene
+    # size and backend (ops/trace.resolve_intersector); 'mt' (all-pairs
+    # Möller–Trumbore in XLA), 'mt_pallas' (the same as a fused GPU kernel),
+    # 'bvh' (skip-link traversal) and 'bvh8' (fat-leaf traversal) force one.
     intersector: str = "auto"
     # Blue-noise low-discrepancy AA jitter (the reference's dead asset made
     # live; ops/trace.render_frame blue_noise=...).  Not bit-compatible with
     # the reference's hash-jitter stream.
     blue_noise: bool = False
-    # TPU fused-path performance knobs (net-new vs the reference; None =
-    # measured defaults, overridable per-sweep with TPT_SORT_BOUNCES /
-    # TPT_TILE_RAYS env vars — but only values set HERE flow into the
-    # renderer's step cache key and force a correct retrace).
-    # sort_bounces: how many leading bounces re-bin the ray state
-    # (ops/trace._sort_bounces); tile_rays: Pallas kernel ray-tile width,
-    # positive multiple of 128 (ops/pallas/mt_shade._tile_rays);
-    # sort_window: binning-sort window length, 0 = one global sort
-    # (ops/trace._sort_window).
-    sort_bounces: int | None = None
-    tile_rays: int | None = None
-    sort_window: int | None = None
 
     @property
     def scaled_width(self) -> int:

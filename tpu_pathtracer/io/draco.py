@@ -52,7 +52,7 @@ def _find_src() -> Optional[str]:
 _SRC = _find_src()
 _BUILD_DIR = (os.path.join(os.path.dirname(_SRC), "build") if _SRC
               else os.path.join(os.path.dirname(__file__), "build"))
-_SO = os.path.join(_BUILD_DIR, "libtpu_pt_draco.so")
+_SO = os.path.join(_BUILD_DIR, "libpathtracer_draco.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -61,7 +61,10 @@ _tried = False
 
 def _compile() -> bool:
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-o", _SO, _SRC]
+    # build beside the target and rename: another process may load _SO
+    # while this one compiles it
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-o", tmp, _SRC]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired):
@@ -70,6 +73,7 @@ def _compile() -> bool:
         print(f"[tpu_pathtracer] draco codec build failed:\n{proc.stderr}",
               file=sys.stderr)
         return False
+    os.replace(tmp, _SO)
     return True
 
 
@@ -80,7 +84,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if os.environ.get("TPU_PT_NO_NATIVE"):
+        if os.environ.get("PATHTRACER_NO_NATIVE"):
             return None
         try:
             if _SRC is None:
@@ -100,34 +104,34 @@ def get_lib() -> Optional[ctypes.CDLL]:
             np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
             np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
         )
-        lib.tpu_pt_draco_last_error.restype = ctypes.c_char_p
-        lib.tpu_pt_draco_last_error.argtypes = []
-        lib.tpu_pt_draco_open.restype = ctypes.c_void_p
-        lib.tpu_pt_draco_open.argtypes = [u8p, i64]
-        lib.tpu_pt_draco_close.restype = None
-        lib.tpu_pt_draco_close.argtypes = [ctypes.c_void_p]
-        lib.tpu_pt_draco_h_info.restype = i64
-        lib.tpu_pt_draco_h_info.argtypes = [ctypes.c_void_p, i64p]
-        lib.tpu_pt_draco_h_attr_info.restype = i64
-        lib.tpu_pt_draco_h_attr_info.argtypes = [ctypes.c_void_p, i64, i64p]
-        lib.tpu_pt_draco_h_indices.restype = i64
-        lib.tpu_pt_draco_h_indices.argtypes = [ctypes.c_void_p, u32p]
-        lib.tpu_pt_draco_h_attr_f32.restype = i64
-        lib.tpu_pt_draco_h_attr_f32.argtypes = [ctypes.c_void_p, i64, f32p]
-        lib.tpu_pt_draco_info.restype = i64
-        lib.tpu_pt_draco_info.argtypes = [u8p, i64, i64p]
-        lib.tpu_pt_draco_attr_info.restype = i64
-        lib.tpu_pt_draco_attr_info.argtypes = [u8p, i64, i64, i64p]
-        lib.tpu_pt_draco_indices.restype = i64
-        lib.tpu_pt_draco_indices.argtypes = [u8p, i64, u32p]
-        lib.tpu_pt_draco_attr_f32.restype = i64
-        lib.tpu_pt_draco_attr_f32.argtypes = [u8p, i64, i64, f32p]
-        lib.tpu_pt_draco_encode.restype = i64
-        lib.tpu_pt_draco_encode.argtypes = [
+        lib.pt_draco_last_error.restype = ctypes.c_char_p
+        lib.pt_draco_last_error.argtypes = []
+        lib.pt_draco_open.restype = ctypes.c_void_p
+        lib.pt_draco_open.argtypes = [u8p, i64]
+        lib.pt_draco_close.restype = None
+        lib.pt_draco_close.argtypes = [ctypes.c_void_p]
+        lib.pt_draco_h_info.restype = i64
+        lib.pt_draco_h_info.argtypes = [ctypes.c_void_p, i64p]
+        lib.pt_draco_h_attr_info.restype = i64
+        lib.pt_draco_h_attr_info.argtypes = [ctypes.c_void_p, i64, i64p]
+        lib.pt_draco_h_indices.restype = i64
+        lib.pt_draco_h_indices.argtypes = [ctypes.c_void_p, u32p]
+        lib.pt_draco_h_attr_f32.restype = i64
+        lib.pt_draco_h_attr_f32.argtypes = [ctypes.c_void_p, i64, f32p]
+        lib.pt_draco_info.restype = i64
+        lib.pt_draco_info.argtypes = [u8p, i64, i64p]
+        lib.pt_draco_attr_info.restype = i64
+        lib.pt_draco_attr_info.argtypes = [u8p, i64, i64, i64p]
+        lib.pt_draco_indices.restype = i64
+        lib.pt_draco_indices.argtypes = [u8p, i64, u32p]
+        lib.pt_draco_attr_f32.restype = i64
+        lib.pt_draco_attr_f32.argtypes = [u8p, i64, i64, f32p]
+        lib.pt_draco_encode.restype = i64
+        lib.pt_draco_encode.argtypes = [
             f32p, ctypes.c_void_p, i64, u32p, i64, i64, i64, u8p, i64,
         ]
-        lib.tpu_pt_draco_encode2.restype = i64
-        lib.tpu_pt_draco_encode2.argtypes = [
+        lib.pt_draco_encode2.restype = i64
+        lib.pt_draco_encode2.argtypes = [
             f32p, ctypes.c_void_p, i64, u32p, i64, i64, i64, i64, i64,
             u8p, i64,
         ]
@@ -140,7 +144,7 @@ def available() -> bool:
 
 
 def _err(lib) -> str:
-    return lib.tpu_pt_draco_last_error().decode("utf-8", "replace")
+    return lib.pt_draco_last_error().decode("utf-8", "replace")
 
 
 def _require_lib():
@@ -148,7 +152,7 @@ def _require_lib():
     if lib is None:
         raise DracoError(
             "native Draco codec unavailable (g++ build failed or "
-            "TPU_PT_NO_NATIVE set); decode Draco assets offline, e.g. "
+            "PATHTRACER_NO_NATIVE set); decode Draco assets offline, e.g. "
             "`gltf-pipeline -i model.glb -o out.glb -d`"
         )
     return lib
@@ -166,27 +170,27 @@ def decode(data: bytes) -> Dict[str, object]:
     # decode-to-handle: ONE stream parse; every accessor below reads the
     # cached DecodedMesh (a k-attribute mesh used to be fully re-decoded
     # 2+2k times — advisor finding, round 1)
-    handle = lib.tpu_pt_draco_open(buf, n)
+    handle = lib.pt_draco_open(buf, n)
     if not handle:
         raise DracoError(_err(lib))
     try:
         info = np.zeros(3, np.int64)
-        if lib.tpu_pt_draco_h_info(handle, info) != 0:
+        if lib.pt_draco_h_info(handle, info) != 0:
             raise DracoError(_err(lib))
         num_points, num_faces, num_attrs = (int(x) for x in info)
 
         idx = np.empty(3 * num_faces, np.uint32)
-        if lib.tpu_pt_draco_h_indices(handle, idx) < 0:
+        if lib.pt_draco_h_indices(handle, idx) < 0:
             raise DracoError(_err(lib))
 
         attrs: List[Dict[str, object]] = []
         for j in range(num_attrs):
             ai = np.zeros(4, np.int64)
-            if lib.tpu_pt_draco_h_attr_info(handle, j, ai) != 0:
+            if lib.pt_draco_h_attr_info(handle, j, ai) != 0:
                 raise DracoError(_err(lib))
             unique_id, att_type, _dtype, comps = (int(x) for x in ai)
             vals = np.empty(num_points * comps, np.float32)
-            if lib.tpu_pt_draco_h_attr_f32(handle, j, vals) < 0:
+            if lib.pt_draco_h_attr_f32(handle, j, vals) < 0:
                 raise DracoError(_err(lib))
             attrs.append({
                 "unique_id": unique_id,
@@ -196,7 +200,7 @@ def decode(data: bytes) -> Dict[str, object]:
                 "values": vals.reshape(num_points, comps),
             })
     finally:
-        lib.tpu_pt_draco_close(handle)
+        lib.pt_draco_close(handle)
     return {
         "num_points": num_points,
         "indices": idx.astype(np.int64).reshape(-1, 3),
@@ -246,7 +250,7 @@ def encode(
     rv = np.int64(1 if rans else 0)
     cap = 64 + 12 * 4 * n + 16 * f + 256
     out = np.empty(cap, np.uint8)
-    size = lib.tpu_pt_draco_encode2(
+    size = lib.pt_draco_encode2(
         pos, nrm_ptr, np.int64(n), idx.reshape(-1), np.int64(f),
         np.int64(position_bits), np.int64(normal_bits), m, rv, out,
         np.int64(cap),
@@ -255,7 +259,7 @@ def encode(
         raise DracoError(_err(lib))
     if size > cap:  # retry with exact size
         out = np.empty(int(size), np.uint8)
-        size = lib.tpu_pt_draco_encode2(
+        size = lib.pt_draco_encode2(
             pos, nrm_ptr, np.int64(n), idx.reshape(-1), np.int64(f),
             np.int64(position_bits), np.int64(normal_bits), m, rv, out,
             np.int64(size),

@@ -83,9 +83,7 @@ def pack_env_patches(radiance):
     [c(y,x), c(y,x+1), c(y+1,x), c(y+1,x+1)] with clamp-to-edge neighbors.
 
     One WIDE row gather then replaces the four narrow gathers of
-    `sample_bilinear` — the measured per-index gather cost on this TPU is
-    independent of row width (docs/DESIGN_NOTES.md), so this quarters the
-    env-lookup cost in the bounce loop.  Built from `radiance` inside the
+    `sample_bilinear` in the bounce loop.  Built from `radiance` inside the
     jitted trace (differentiable, hoisted out of the bounce loop by XLA).
     """
     h, w = radiance.shape[0], radiance.shape[1]

@@ -10,9 +10,9 @@ Semantics follow the reference kernels exactly:
     before right (so right is visited first), nearest hit wins with strict <.
 
 This module is the portable XLA implementation: every ray carries its own
-stack lane in a (R, 64) array inside a `lax.while_loop`, with gathers for node
-and triangle data.  It runs on CPU and TPU and is the semantic oracle for the
-Pallas fast path (ops/pallas/).
+traversal state inside a `lax.while_loop`, with gathers for node and
+triangle data.  The loops' exit predicates depend on data, so on the GPU
+XLA copies them to the host on every iteration.
 """
 
 from __future__ import annotations
@@ -346,8 +346,10 @@ def _map_ray_batches(fn, ro, rd, batch: int):
     The traversal while_loops run in lockstep over their whole batch: ONE
     worst-case ray (e.g. a shell-crossing ray visiting thousands of boxes)
     stalls every lane for its full path.  Sub-batching bounds the damage to
-    one batch — measured 3.4x on the 100K-tri stress scene (BASELINE.md).
-    Batches run sequentially (lax.map), which is free on a single core.
+    one batch, but the batches run one after another (lax.map), each with
+    its own loop.  On an H100 the 100K-triangle stress frame (512^2, 6
+    bounces) took 178.5 / 141.0 / 214.0 ms at batches of 16384 / 65536 /
+    all rays, so `bvh_fat_intersect` defaults to 65536 (PERF.md).
     """
     R = ro.shape[0]
     if batch <= 0 or R <= batch or R % batch:
@@ -361,7 +363,7 @@ def _map_ray_batches(fn, ro, rd, batch: int):
 
 
 def bvh_fat_intersect(fat_nodes, ro, rd, *, max_leaf: int = 8,
-                      ray_batch: int = 16384):
+                      ray_batch: int = 65536):
     if ray_batch:
         fn = lambda a, b: bvh_fat_intersect(fat_nodes, a, b,
                                             max_leaf=max_leaf, ray_batch=0)
@@ -375,9 +377,9 @@ def _bvh_fat_intersect_impl(fat_nodes, ro, rd, *, max_leaf: int = 8):
     Each visited node costs ONE wide gather (box + up to `max_leaf` inlined
     triangles) instead of a node gather plus a triangle gather per leaf —
     and the fat tree has ~max_leaf x fewer nodes, so the gather-bound
-    lockstep step count (the whole cost on TPU) shrinks accordingly.
+    lockstep step count shrinks accordingly.
     Triangle tests inside a leaf are vectorized over the leaf axis (cheap
-    VPU work).  Nearest hit wins; within a leaf the lowest row index takes
+    elementwise work).  Nearest hit wins; within a leaf the lowest row index takes
     exact-t ties; across nodes the first-visited node wins (the traversal-
     order convention of `bvh_intersect`).  `Hit.tri` indexes the PACKED
     (DFS leaf order) triangle rows like the other intersectors.

@@ -1,14 +1,12 @@
-"""MXU Möller–Trumbore: all-pairs ray/triangle intersection as a matmul.
+"""All-pairs Möller–Trumbore ray/triangle intersection as a bilinear form.
 
 The reference's hot loop is a divergent per-thread BVH stack walk
-(reference: src/passes/shaders/raytrace.wgsl:154-203) whose TPU translation
-is gather-bound: one XLA gather per traversal step costs ~3.2 ns/ray on a
-v5e regardless of row width (measured, docs/DESIGN_NOTES.md), i.e. ~850 µs
-per step at 512² — the honest round-1 cost of 2.7e5 rays/s.
+(reference: src/passes/shaders/raytrace.wgsl:154-203).  This module is the
+plain XLA formulation of the all-pairs alternative, and the reference the
+fused GPU kernel (ops/pallas/mt_triton.py) is checked against.
 
-The TPU-native formulation instead feeds the MXU.  Möller–Trumbore
-(raytrace.wgsl:78-116) is a bilinear form in the ray: with the 10-feature
-vector
+Möller–Trumbore (raytrace.wgsl:78-116) is a bilinear form in the ray: with
+the 10-feature vector
 
     phi(ray) = [1, ro, rd, ro x rd]                         (R, 10)
 
@@ -21,10 +19,8 @@ per-triangle coefficient table (scalar triple-product identities):
     t*a = e2 . q         = ro . (e1 x e2) - e2 . (p0 x e1)
 
 (e1 = p1 - p0, e2 = p2 - p0, s = ro - p0, h = rd x e2, q = s x e1).  The
-validity conditions and the nearest-hit argmin are a short VPU epilogue.
-No gathers, no sorting, no per-ray divergence — coherence-free throughput
-set by MXU flops + epilogue VPU ops, measured 3 orders of magnitude above
-the gather traversal on in-scope scene sizes (docs/DESIGN_NOTES.md).
+validity conditions and the nearest-hit argmin are a short elementwise
+epilogue.  No gathers, no sorting, no per-ray divergence.
 
 Semantics match `intersect.ray_triangle` exactly in exact arithmetic
 (EPSILON determinant rejection, u,v in [0,1], u+v <= 1, t > EPSILON,
@@ -40,9 +36,45 @@ import jax.numpy as jnp
 from .intersect import Hit
 from .vecmath import EPSILON, INF, cross
 
-# Highest-precision f32 matmul (6-pass bf16 on TPU): the determinants feed
-# geometric predicates, so bf16 single-pass is not acceptable.
+# True float32 for the K=10 contraction (on the GPU, HIGHEST means IEEE
+# float32 with no TF32): the determinants feed geometric predicates, so a
+# reduced-precision product is not acceptable.
 _PRECISION = jax.lax.Precision.HIGHEST
+
+# Rows of `triangle_coef_rows`, in phi-feature order within each
+# determinant: a = rd.n; u*a = rd.(-e2xp0) + (ro x rd).e2;
+# v*a = rd.(-p0xe1) + (ro x rd).(-e1); t*a = const + ro.(e1xe2).
+COEF_ROWS = 19
+
+
+def _coef_parts(tri_pos):
+    """The non-zero MT coefficient vectors of each triangle, (N, 3) each
+    except the (N,) t*a constant."""
+    p0 = tri_pos[:, 0:3]
+    e1 = tri_pos[:, 3:6] - p0
+    e2 = tri_pos[:, 6:9] - p0
+    p0xe1 = cross(p0, e1)
+    return dict(
+        n=cross(e2, e1),  # a = rd . n
+        ua_rd=-cross(e2, p0),
+        ua_rxd=e2,
+        va_rd=-p0xe1,
+        va_rxd=-e1,
+        ta_const=-jnp.einsum("nk,nk->n", e2, p0xe1, precision=_PRECISION),
+        ta_ro=cross(e1, e2),
+    )
+
+
+def triangle_coef_rows(tri_pos):
+    """The 19 non-zero rows of `triangle_columns` as one (19, N) f32 table
+    (row order: see COEF_ROWS).  The fused kernel streams this compact
+    table instead of the zero-padded (10, 4, N) one."""
+    c = _coef_parts(tri_pos)
+    return jnp.concatenate(
+        [c["n"].T, c["ua_rd"].T, c["ua_rxd"].T, c["va_rd"].T,
+         c["va_rxd"].T, c["ta_const"][None, :], c["ta_ro"].T],
+        axis=0,
+    )
 
 
 def triangle_columns(tri_pos):
@@ -53,23 +85,19 @@ def triangle_columns(tri_pos):
     and differentiable w.r.t. the vertex positions, so it is (re)computed
     inside the jitted trace step — XLA hoists it out of the bounce loop.
     """
-    p0 = tri_pos[:, 0:3]
-    e1 = tri_pos[:, 3:6] - p0
-    e2 = tri_pos[:, 6:9] - p0
-    n = cross(e2, e1)  # a = rd . n
-    e2xp0 = cross(e2, p0)
-    p0xe1 = cross(p0, e1)
-    e1xe2 = cross(e1, e2)
+    c = _coef_parts(tri_pos)
     N = tri_pos.shape[0]
     zeros3 = jnp.zeros((N, 3), tri_pos.dtype)
     zeros1 = jnp.zeros((N,), tri_pos.dtype)
 
     # (N, 10) per output column, then stack -> (N, 4, 10) -> (10, 4, N)
-    col_a = jnp.concatenate([zeros1[:, None], zeros3, n, zeros3], axis=1)
-    col_ua = jnp.concatenate([zeros1[:, None], zeros3, -e2xp0, e2], axis=1)
-    col_va = jnp.concatenate([zeros1[:, None], zeros3, -p0xe1, -e1], axis=1)
-    ta_const = -jnp.einsum("nk,nk->n", e2, p0xe1)
-    col_ta = jnp.concatenate([ta_const[:, None], e1xe2, zeros3, zeros3], axis=1)
+    col_a = jnp.concatenate([zeros1[:, None], zeros3, c["n"], zeros3], axis=1)
+    col_ua = jnp.concatenate(
+        [zeros1[:, None], zeros3, c["ua_rd"], c["ua_rxd"]], axis=1)
+    col_va = jnp.concatenate(
+        [zeros1[:, None], zeros3, c["va_rd"], c["va_rxd"]], axis=1)
+    col_ta = jnp.concatenate(
+        [c["ta_const"][:, None], c["ta_ro"], zeros3, zeros3], axis=1)
 
     cols = jnp.stack([col_a, col_ua, col_va, col_ta], axis=1)  # (N, 4, 10)
     return jnp.transpose(cols, (2, 1, 0))  # (10, 4, N)
@@ -128,7 +156,7 @@ def _epilogue(dets, base, best):
 
 
 def mt_intersect(tri_pos, ro, rd, *, chunk: int = 512):
-    """All-pairs MT intersection on the MXU; returns `intersect.Hit`.
+    """All-pairs MT intersection in plain XLA; returns `intersect.Hit`.
 
     tri_pos: (N, 9) packed vertices; ro, rd: (R, 3).  Triangle chunking
     bounds the (R, 4*C) intermediate; each chunk is one

@@ -1,9 +1,5 @@
-"""Pallas TPU kernels — the native device-kernel layer (SURVEY.md §7 C).
+"""Hand-written GPU kernels (Pallas, Triton route).
 
-Kernels dispatch from their XLA counterparts when running on TPU hardware;
-the XLA implementations remain the portable semantics oracle.
+Each kernel has a plain XLA counterpart that stays the semantic reference
+and the path on other backends; see ops/trace.resolve_intersector.
 """
-
-from .denoise import smart_denoise_pallas
-
-__all__ = ["smart_denoise_pallas"]

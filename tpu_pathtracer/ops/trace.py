@@ -26,47 +26,57 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..config import INTERSECTORS
 from . import camera as camera_ops
 from . import envsample, rng
-from .intersect import bvh_intersect, bvh_intersect_diff
+from .intersect import (
+    bvh_fat_intersect,
+    bvh_intersect,
+    bvh_intersect_diff,
+    replay_hit,
+)
 from .mt_matmul import mt_intersect
+from .pallas.mt_triton import mt_intersect_triton
 from .vecmath import mix, normalize, reflect
 
-# Scenes at or below this padded triangle count default to the whole-scene
-# VMEM Möller–Trumbore kernel (ops/pallas/mt_shade.py): on TPU the
-# all-pairs formulation beats the gather-bound traversal by orders of
-# magnitude (docs/DESIGN_NOTES.md).  The cap is the kernel's VMEM budget
-# (16K-tri coefficient tables fail the Mosaic compile).
+# Scenes at or below this padded triangle count take the all-pairs
+# Möller–Trumbore intersector; larger ones the fat-leaf BVH walk ('bvh8'),
+# whose cost grows with depth instead of triangle count.  At 8,192 the
+# fused kernel still wins on an H100 (700 W): 30.6 ms against 74.9 ms for
+# bvh8 per 512^2 x 4-bounce frame (PERF.md); larger counts are not
+# measured yet.
 MT_AUTO_MAX_TRIS = 8192
-# Above the VMEM wall, the HBM-streamed two-level-culled kernel
-# (conditional per-chunk DMA) carries the scene: measured round 3 on the
-# fused sorted trace, 16K tris 45.7 ms / 32K 57.2 ms / 131K x 6 bounces
-# 115.4 ms per 512^2 frame — 19-26x over the round-2 bvh8 traversal, no
-# >3x cliff at any doubling.  The cap is the HBM coefficient-table size
-# (64 KB per 128-tri chunk).
-MT_STREAM_AUTO_MAX_TRIS = 262144
 
 
-def resolve_intersector(intersector: str, n_tris: int) -> str:
-    """Resolve the 'auto' intersector choice to a concrete backend.
+def resolve_intersector(intersector: str, n_tris: int,
+                        backend: str | None = None) -> str:
+    """Resolve an intersector name to a concrete one for `backend`
+    (default: jax.default_backend()).
 
-    'auto' on TPU picks the fused whole-scene Pallas MT kernel up to its
-    8K-triangle VMEM wall, then the HBM-streamed variant ('mt_stream') to
-    256K triangles, then the fat-leaf gather traversal ('bvh8').  On other
-    backends: the XLA MT matmul (same math, so CPU tests cover the TPU
-    path) up to the same wall, then 'bvh8' (the XLA brute force is
-    quadratic in scene size).  'bvh' is the reference-contract
-    1-triangle-leaf skip-link walk."""
-    if intersector == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        if n_tris <= MT_AUTO_MAX_TRIS:
-            return "mt_pallas" if on_tpu else "mt"
-        if on_tpu and n_tris <= MT_STREAM_AUTO_MAX_TRIS:
-            return "mt_stream"
-        return "bvh8"
-    if intersector not in ("mt", "mt_pallas", "mt_stream", "bvh", "bvh8"):
+    'auto' takes the all-pairs Möller–Trumbore path up to
+    MT_AUTO_MAX_TRIS padded triangles, then the fat-leaf traversal
+    ('bvh8'): on the GPU the fused kernel ('mt_pallas',
+    ops/pallas/mt_triton.py), elsewhere the plain XLA form ('mt', the same
+    math).  'mt_pallas' is a compiled GPU kernel, so asking for it on
+    another backend is an error, never a silent interpreter run.  'bvh' is
+    the reference-contract 1-triangle-leaf skip-link walk."""
+    if intersector not in INTERSECTORS:
         raise ValueError(f"unknown intersector {intersector!r}")
+    backend = backend or jax.default_backend()
+    if intersector == "auto":
+        if n_tris > MT_AUTO_MAX_TRIS:
+            return "bvh8"
+        return "mt_pallas" if backend == "gpu" else "mt"
+    if intersector == "mt_pallas" and backend != "gpu":
+        raise ValueError(
+            f"intersector 'mt_pallas' is a GPU kernel and the backend is "
+            f"{backend!r}; use 'auto' or 'mt'")
     return intersector
+
+
+# All-pairs intersectors by name.  Tests on the CPU swap an entry for the
+# kernel in interpret mode to run it through the whole trace loop.
+MT_FNS = {"mt": mt_intersect, "mt_pallas": mt_intersect_triton}
 
 
 def pack_material_rows(materials):
@@ -113,12 +123,12 @@ def trace_rays(scene, params, ro, rd, seed, *, max_bounces: int,
     Returns (incoming_light (R, 3), seed).
 
     `intersector` selects the intersection backend (static):
-    'mt'/'mt_pallas'/'mt_stream' = all-pairs Möller–Trumbore (XLA / fused
-    Pallas / HBM-streamed Pallas), 'bvh' = 1-tri-leaf skip-link traversal,
-    'bvh8' = fat-leaf sub-batched traversal, 'auto' = by scene size and
-    backend (`resolve_intersector`).  All are parity-tested against each
-    other and the numpy oracle; they differ only by f32 re-association and
-    the tie-break on exact shared-edge t ties.
+    'mt'/'mt_pallas' = all-pairs Möller–Trumbore (plain XLA / fused GPU
+    kernel), 'bvh' = 1-tri-leaf skip-link traversal, 'bvh8' = fat-leaf
+    sub-batched traversal, 'auto' = by scene size and backend
+    (`resolve_intersector`).  All are parity-tested against each other and
+    the numpy oracle; they differ only by f32 re-association and the
+    tie-break on exact shared-edge t ties.
 
     With `differentiable=True` the discrete triangle choice runs detached
     and (t, u, v) are replayed analytically (intersect.replay_hit), making
@@ -127,35 +137,15 @@ def trace_rays(scene, params, ro, rd, seed, *, max_bounces: int,
     scan-convertible).
     """
     R = ro.shape[0]
-    kind = resolve_intersector(intersector, scene.packed.tri_pos.shape[0])
-    if (kind in ("mt_pallas", "mt_stream")
-            and getattr(jax.typeof(ro), "vma", None)
-            and jax.default_backend() != "tpu"):
-        # Under shard_map with check_vma, jax 0.9 traces the kernel with
-        # vma-stripped avals, so the COMPILED Mosaic path works (verified
-        # on-chip: sharded == unsharded bit-exact).  Only the interpreter
-        # lowering re-evals the kernel jaxpr with vma-typed values and
-        # trips the checker on literal operands — CPU (interpret) falls
-        # back to the XLA MT formulation (same math, parity-tested).
-        kind = "mt"
-    if kind in ("mt", "mt_pallas", "mt_stream"):
-        tri_pos = scene.packed.tri_pos
-        interp = jax.default_backend() != "tpu"
-        if kind == "mt_pallas":
-            from .pallas.mt_shade import mt_intersect_pallas2
-
-            base_fn = partial(mt_intersect_pallas2, interpret=interp)
-        elif kind == "mt_stream":
-            # (round-2 routed explicit 'mt_stream' to the skip-link
-            # traversal by accident; it now gets the streamed kernel)
-            from .pallas.mt_shade import mt_intersect_stream2
-
-            base_fn = partial(mt_intersect_stream2, interpret=interp)
+    tri_pos = scene.packed.tri_pos
+    kind = resolve_intersector(intersector, tri_pos.shape[0])
+    if kind in MT_FNS or kind == "bvh8":
+        if kind == "bvh8":
+            fat = jax.lax.stop_gradient(scene.packed.fat_nodes)
+            base_fn = lambda _tri_pos, ro, rd: bvh_fat_intersect(fat, ro, rd)
         else:
-            base_fn = mt_intersect
+            base_fn = MT_FNS[kind]
         if differentiable:
-            from .intersect import replay_hit
-
             def intersect_fn(ro, rd):
                 h = base_fn(
                     jax.lax.stop_gradient(tri_pos),
@@ -165,24 +155,9 @@ def trace_rays(scene, params, ro, rd, seed, *, max_bounces: int,
                 return replay_hit(tri_pos, ro, rd, h)
         else:
             intersect_fn = lambda ro, rd: base_fn(tri_pos, ro, rd)
-    elif kind == "bvh8":
-        from .intersect import bvh_fat_intersect, replay_hit
-
-        fat = scene.packed.fat_nodes
-        tri_pos = scene.packed.tri_pos
-        if differentiable:
-            def intersect_fn(ro, rd):
-                h = bvh_fat_intersect(
-                    jax.lax.stop_gradient(fat),
-                    jax.lax.stop_gradient(ro),
-                    jax.lax.stop_gradient(rd),
-                )
-                return replay_hit(tri_pos, ro, rd, h)
-        else:
-            intersect_fn = lambda ro, rd: bvh_fat_intersect(fat, ro, rd)
     else:
         fn = bvh_intersect_diff if differentiable else bvh_intersect
-        intersect_fn = partial(fn, scene.packed.nodes, scene.packed.tri_pos)
+        intersect_fn = partial(fn, scene.packed.nodes, tri_pos)
 
     # Pre-packed wide-row tables (one gather per bounce each; hoisted out of
     # the bounce loop by XLA, differentiable w.r.t. materials/env radiance).
@@ -200,11 +175,9 @@ def trace_rays(scene, params, ro, rd, seed, *, max_bounces: int,
     def body(_, carry):
         ro, rd, incoming, color, seed, active = carry
         # Park terminated rays far away with rd = 0: their determinant is
-        # identically 0 (guaranteed miss, no inf/nan) and every treelet box
-        # test fails, so a fully-terminated ray tile skips ALL intersection
-        # work in the Pallas kernel — tile-granularity compaction without
-        # sorting.  bounce_shade gates every state update on `active`, so
-        # the parked values never propagate.
+        # identically 0 (a guaranteed miss, no inf/nan) and the BVH walks
+        # miss the root box at once.  bounce_shade gates every state update
+        # on `active`, so the parked values never propagate.
         am = active[:, None]
         hit = intersect_fn(
             jnp.where(am, ro, jnp.float32(1e30)),
@@ -233,7 +206,9 @@ def trace_rays(scene, params, ro, rd, seed, *, max_bounces: int,
         # is an identity when no lane is active, because every state update
         # is gated on hit/miss masks that require `active`).  The reference
         # always runs maxBounces iterations (raytrace.wgsl:378); on
-        # miss-heavy scenes this skips whole intersection rounds.
+        # miss-heavy scenes this skips whole intersection rounds.  On the
+        # GPU, XLA reads the data-dependent predicate back to the host
+        # once per bounce (PERF.md).
         def w_cond(state):
             i, carry = state
             return (i < max_bounces) & jnp.any(carry[5])
@@ -274,8 +249,7 @@ def _material_from_row(row):
 
 
 def bounce_shade(scene, params, hit, carry, *, env_importance: bool = False,
-                 mat_rows=None, shade_mat=None, env_patches=None,
-                 defer_env: bool = False):
+                 mat_rows=None, shade_mat=None, env_patches=None):
     """One bounce of the trace loop given a Hit: BRDF sample + emission +
     throughput update on hits, environment lookup on misses
     (raytrace.wgsl:378-408).  Shared by the megakernel (`trace_rays`) and
@@ -287,12 +261,7 @@ def bounce_shade(scene, params, hit, carry, *, env_importance: bool = False,
       * `shade_mat`: (N, 21) joined normals+material rows
         (pack_shade_material_rows); else `mat_rows`/per-field fallback,
       * `env_patches`: (H*W, 12) bilinear patch rows
-        (envsample.pack_env_patches).
-
-    `defer_env=True` skips the environment lookup entirely (the fused
-    sorted path adds the env term once per ray after the bounce loop —
-    bit-identical, because a miss is always a ray's final event so the env
-    addend is the last term of its `incoming` sum either way)."""
+        (envsample.pack_env_patches)."""
     ro, rd, incoming, color, seed, active = carry
     tris = scene.triangles
     hit_mask = active & hit.hit
@@ -326,29 +295,28 @@ def bounce_shade(scene, params, hit, carry, *, env_importance: bool = False,
     emitted = mat["emission_color"] * mat["emission_strength"][:, None]
     incoming = incoming + jnp.where(hit_mask[:, None], emitted * color, 0.0)
 
-    if not defer_env:
-        miss_mask = active & ~hit.hit
+    miss_mask = active & ~hit.hit
 
-        def _radiance(uv):
-            if env_patches is not None:
-                shape = (scene.env.height, scene.env.width)
-                return envsample.env_radiance_packed(env_patches, shape, uv)
-            return envsample.env_radiance(scene.env, uv)
+    def _radiance(uv):
+        if env_patches is not None:
+            shape = (scene.env.height, scene.env.width)
+            return envsample.env_radiance_packed(env_patches, shape, uv)
+        return envsample.env_radiance(scene.env, uv)
 
-        if env_importance:
-            # The reference's (shipped-disabled) importance-sampled variant,
-            # with the PDF correction applied to the env term only
-            # (raytrace.wgsl:398-404).  Consumes 2 uniforms on miss.
-            seed_m, env_uv = envsample.env_importance_sample(scene.env, seed)
-            pdf = envsample.env_pdf(scene.env, env_uv)
-            env_contrib = _radiance(env_uv) * params.env_intensity / pdf[:, None]
-            seed = jnp.where(miss_mask, seed_m, seed)
-        else:
-            env_uv = envsample.env_uv_from_ray(rd, params.env_rotation)
-            env_contrib = _radiance(env_uv) * params.env_intensity
-        incoming = incoming + jnp.where(
-            miss_mask[:, None], env_contrib * color, 0.0
-        )
+    if env_importance:
+        # The reference's (shipped-disabled) importance-sampled variant,
+        # with the PDF correction applied to the env term only
+        # (raytrace.wgsl:398-404).  Consumes 2 uniforms on miss.
+        seed_m, env_uv = envsample.env_importance_sample(scene.env, seed)
+        pdf = envsample.env_pdf(scene.env, env_uv)
+        env_contrib = _radiance(env_uv) * params.env_intensity / pdf[:, None]
+        seed = jnp.where(miss_mask, seed_m, seed)
+    else:
+        env_uv = envsample.env_uv_from_ray(rd, params.env_rotation)
+        env_contrib = _radiance(env_uv) * params.env_intensity
+    incoming = incoming + jnp.where(
+        miss_mask[:, None], env_contrib * color, 0.0
+    )
 
     color = jnp.where(
         hit_mask[:, None],
@@ -361,575 +329,6 @@ def bounce_shade(scene, params, hit, carry, *, env_importance: bool = False,
     active = hit_mask
 
     return ro, rd, incoming, color, seed, active
-
-
-def _sort_window(override=None) -> int:
-    """Window length for the per-bounce binning sort: 0 = one global sort
-    over all R rays; W > 0 = independent sorts over consecutive W-ray
-    windows (lax.sort over axis 1 of an (R/W, W) reshape — a length-W
-    network vectorized over R/W rows instead of a length-R network).
-
-    Correctness is window-size-independent: ANY permutation of rays gives
-    the same image (per-ray math is order-free; the final restore keys on
-    the unique pixel index), and when every binning sort uses the same
-    windows, rays never leave their window, so the restore sort is
-    windowed identically.  The trade is grouping quality: tiles can only
-    share work within a window.  Resolution: override
-    (RenderConfig.sort_window), then the TPT_SORT_WINDOW env var (sweep
-    hook, read at trace time), then the measured default 32768 (round-5
-    headline sweep: global 10.98, 16384 11.03, 32768 10.84, 65536
-    13.35 ms/frame; renders with R <= window fall back to the global
-    sort in _windowed_sort, so small images are unaffected)."""
-    import os
-
-    if override is not None:
-        return int(override)
-    return int(os.environ.get("TPT_SORT_WINDOW", "32768"))
-
-
-def _windowed_sort(operands, window: int, num_keys: int = 1):
-    """lax.sort over independent consecutive windows (see _sort_window).
-    Falls back to one global sort when window doesn't cleanly apply, or
-    when there would be fewer than 8 windows: the (rows, W) lowering needs
-    enough rows to batch — measured at W=32768, (8, W) beats the global
-    sort (10.84 vs 10.98 ms headline) but (2, W) at 256² is ~3.5x WORSE
-    than global (1.78 vs ~0.5 ms), so small renders keep the 1-D sort."""
-    r = operands[0].shape[0]
-    if window <= 0 or r % window or r // window < 8:
-        return jax.lax.sort(operands, dimension=0, num_keys=num_keys,
-                            is_stable=False)
-    ops2 = tuple(o.reshape(r // window, window) for o in operands)
-    out = jax.lax.sort(ops2, dimension=1, num_keys=num_keys,
-                       is_stable=False)
-    return tuple(o.reshape(r) for o in out)
-
-
-def _sort_ray_state(key, ro, rd, color, incoming, seed, pixact,
-                    window: int = 0):
-    """Sort the component-major per-ray bounce state by `key` (i32).
-
-    ro/rd/color/incoming are (3, R); each component row is a contiguous
-    (R,) sort operand, and re-assembling the sorted rows is a plain axis-0
-    stack (concatenation), not the row-major layout's interleave.  The
-    payload movement through the sort network dominates the runtime cost
-    (~1.3 ms at 512² however the 14 payload columns are grouped —
-    examples/micro_sort.py), so the fused loop limits how many bounces
-    sort at all (`_sort_bounces`).
-
-    ONE 15-operand sort instead of two 8-operand sorts, `is_stable=False`:
-    each variadic lax.sort instruction lowers its own ~60 s XLA sorting
-    network on TPU (measured round 4 — the binning sorts were ~120 s of
-    the 154 s frame compile), so fewer+unstable instructions compile far
-    faster at identical runtime.  Instability is semantically free here:
-    per-ray results are independent of ray order (the kernel's winner
-    selection is order-independent by the explicit lowest-index
-    tie-break), and the final order restore keys on the UNIQUE per-ray
-    pixel index, so the restored image is bit-identical either way.  Tile
-    membership of tied rays may differ run-to-run structure-wise, but XLA
-    sorts are deterministic networks, so renders stay reproducible."""
-    seed_i = jax.lax.bitcast_convert_type(seed, jnp.int32)
-    (_, ro0, ro1, ro2, rd0, rd1, rd2, c0, c1, c2, i0, i1, i2, seed_i,
-     pixact) = _windowed_sort(
-        (key, ro[0], ro[1], ro[2], rd[0], rd[1], rd[2],
-         color[0], color[1], color[2], incoming[0], incoming[1], incoming[2],
-         seed_i, pixact),
-        window,
-    )
-    return (
-        jnp.stack([ro0, ro1, ro2], axis=0),
-        jnp.stack([rd0, rd1, rd2], axis=0),
-        jnp.stack([c0, c1, c2], axis=0),
-        jnp.stack([i0, i1, i2], axis=0),
-        jax.lax.bitcast_convert_type(seed_i, jnp.uint32),
-        pixact,
-    )
-
-
-# --- component-major (transposed) helpers for the fused loop -------------
-#
-# The fused TPU path keeps all per-ray vector state as (3, R) / (C, R)
-# arrays: R runs along lanes, so every elementwise op uses the full VPU
-# width, and gathers write (C, R) outputs directly (no layout fixups).
-# Measured on the headline frame: the row-major loop spent ~2.2 ms/frame in
-# pure layout-fixup fusions (slice_reduce_fusion + copies) that this layout
-# deletes.  Each helper computes the same expression as its row-major twin;
-# XLA contracts the component-major dot/normalize reduces into different
-# FMA chains, so the fused path matches the plain loop to FMA-fusion ULPs
-# (integer RNG streams bit-exact) — tests/test_mt_shade.py.
-
-
-def _normalize_t(v):
-    """normalize over axis 0 of (3, R); matches vecmath.normalize
-    (jnp.sum keeps the reduce lowering identical to the row-major loop's —
-    explicit `v0*v0 + v1*v1 + v2*v2` chains rounded differently)."""
-    n = jnp.sqrt(jnp.sum(v * v, axis=0, keepdims=True))
-    return v / n
-
-
-def _reflect_t(d, n):
-    dn = jnp.sum(d * n, axis=0)
-    return d - 2.0 * dn[None, :] * n
-
-
-def _rand_direction_t(seed):
-    """rng.rand_direction with a (3, R) result."""
-    seed, x = rng.rand_normal(seed)
-    seed, y = rng.rand_normal(seed)
-    seed, z = rng.rand_normal(seed)
-    v = jnp.stack([x, y, z], axis=0)
-    return seed, _normalize_t(v)
-
-
-def _rand_cosine_hemisphere_t(seed, normal):
-    seed, d = _rand_direction_t(seed)
-    return seed, _normalize_t(normal + d)
-
-
-def _ray_features_t(ro, rd):
-    """phi(ray) component-major: (3, R),(3, R) -> (10, R); matches
-    mt_matmul.ray_features values."""
-    ones = jnp.ones((1, ro.shape[1]), ro.dtype)
-    cx = ro[1] * rd[2] - ro[2] * rd[1]
-    cy = ro[2] * rd[0] - ro[0] * rd[2]
-    cz = ro[0] * rd[1] - ro[1] * rd[0]
-    return jnp.concatenate(
-        [ones, ro, rd, jnp.stack([cx, cy, cz], axis=0)], axis=0
-    )
-
-
-def _gather_rows_t(table, idx):
-    """Row gather with transposed output: table (N, C), idx (R,) -> (C, R).
-
-    PRECONDITION: idx must be in [0, N) — the XLA gather clamps
-    out-of-range starts but the one-hot path below yields an all-zero
-    column instead; both call sites clip first, and new callers must too.
-
-    The transposed-offset gather measured ~1.8x cheaper than the row-major
-    row gather + column slices at 512² (examples/micro_shade.py): the
-    output feeds component-major consumers with no layout fixup.
-
-    For small tables the one-hot MXU formulation (below) can replace it —
-    TPT_SHADE_GATHER=onehot routes eligible gathers there (sweep hook,
-    read at trace time)."""
-    import os
-
-    if (os.environ.get("TPT_SHADE_GATHER") == "onehot"
-            and table.shape[0] <= 3072):
-        return _gather_rows_onehot(table, idx)
-    dn = jax.lax.GatherDimensionNumbers(
-        offset_dims=(0,), collapsed_slice_dims=(0,), start_index_map=(0,)
-    )
-    return jax.lax.gather(table, idx[:, None], dn,
-                          slice_sizes=(1, table.shape[1]))
-
-
-def _gather_rows_onehot(table, idx):
-    """Exact row gather as three bf16 one-hot matmuls on the MXU.
-
-    Requires in-range idx (see _gather_rows_t): an out-of-range index
-    produces an all-zero one-hot column, not the clamped row XLA's gather
-    would return.
-
-    table (N, C) splits exactly into bf16 hi+mid+lo (a 24-bit f32 mantissa
-    is three 8-bit bf16 mantissas; verified exact over 9M realistic
-    values); onehot(idx) (N, R) bf16 is exact 0/1, each product and the
-    3-term f32 accumulation are exact, so the result is BIT-IDENTICAL to
-    the gather.  Measured ~0.67x the gather's cost in isolation at
-    N = 2048, C = 21 (round 4); only worthwhile for small tables (FLOPs
-    scale with N — the caller gates at N <= 3072)."""
-    n = table.shape[0]
-    hi = table.astype(jnp.bfloat16)
-    r1 = table - hi.astype(jnp.float32)
-    mid = r1.astype(jnp.bfloat16)
-    lo = (r1 - mid.astype(jnp.float32)).astype(jnp.bfloat16)
-    oh = (idx[None, :] == jax.lax.broadcasted_iota(
-        jnp.int32, (n, 1), 0)).astype(jnp.bfloat16)  # (N, R)
-    out = None
-    for part in (hi, mid, lo):
-        d = jax.lax.dot_general(
-            part, oh, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # (C, R)
-        out = d if out is None else out + d
-    return out
-
-
-def _env_uv_from_ray_t(rd, rotation):
-    """envsample.env_uv_from_ray on (3, R) directions -> (2, R)."""
-    cos_r = jnp.cos(rotation)
-    sin_r = jnp.sin(rotation)
-    dx = rd[0] * cos_r - rd[2] * sin_r
-    dz = rd[0] * sin_r + rd[2] * cos_r
-    phi = jnp.arctan2(dx, dz)
-    theta = jnp.arcsin(jnp.clip(rd[1], -1.0, 1.0))
-    return jnp.stack(
-        [phi * envsample.INVTWOPI + 0.5, -theta * envsample.INVPI + 0.5],
-        axis=0,
-    )
-
-
-def _env_radiance_packed_t(patches, shape, uv):
-    """envsample.env_radiance_packed on (2, R) uv -> (3, R)."""
-    h, w = shape
-    x = uv[0] * w - 0.5
-    y = uv[1] * h - 0.5
-    x0f = jnp.floor(x)
-    y0f = jnp.floor(y)
-    fx = jnp.where(x0f < 0, 0.0, x - x0f)[None, :]
-    fy = jnp.where(y0f < 0, 0.0, y - y0f)[None, :]
-    x0 = jnp.clip(x0f.astype(jnp.int32), 0, w - 1)
-    y0 = jnp.clip(y0f.astype(jnp.int32), 0, h - 1)
-    row = _gather_rows_t(patches, y0 * w + x0)  # (12, R)
-    top = row[0:3] + (row[3:6] - row[0:3]) * fx
-    bot = row[6:9] + (row[9:12] - row[6:9]) * fx
-    return top + (bot - top) * fy
-
-
-def bounce_shade_t(scene, params, hit, carry, *, shade_mat):
-    """bounce_shade in component-major layout with the env lookup deferred
-    (the fused path's miss term is added once after the loop).  Matches
-    bounce_shade to FMA-fusion ULPs (integer RNG streams bit-exact) —
-    tests/test_mt_shade.py."""
-    ro, rd, incoming, color, seed, active = carry
-    hit_mask = active & hit.hit
-
-    tri_safe = jnp.clip(hit.tri, 0, scene.triangles.p0.shape[0] - 1)
-    shade = _gather_rows_t(shade_mat, tri_safe)  # (21, R)
-    roughness = shade[18]
-    metalness = shade[19]
-    w = 1.0 - hit.u - hit.v
-    normal = _normalize_t(
-        shade[0:3] * w[None, :]
-        + shade[3:6] * hit.u[None, :]
-        + shade[6:9] * hit.v[None, :]
-    )
-    position = ro + hit.t[None, :] * rd
-
-    # RNG: hit rays consume 7 uniforms; missed/inactive must not advance.
-    seed_h, diffuse_dir = _rand_cosine_hemisphere_t(seed, normal)
-    seed_h, r_spec = rng.rand(seed_h)
-    is_specular = (metalness >= r_spec).astype(jnp.float32)
-    specular_dir = _reflect_t(rd, normal)
-    blend = (is_specular * (1.0 - roughness))[None, :]
-    new_dir = mix(diffuse_dir, specular_dir, blend)  # deliberately unnormalized
-
-    emitted = shade[15:18] * shade[20][None, :]
-    hm = hit_mask[None, :]
-    incoming = incoming + jnp.where(hm, emitted * color, 0.0)
-    color = jnp.where(
-        hm, color * mix(shade[9:12], shade[12:15], is_specular[None, :]),
-        color,
-    )
-    ro = jnp.where(hm, position, ro)
-    rd = jnp.where(hm, new_dir, rd)
-    seed = jnp.where(hit_mask, seed_h, seed)
-    return ro, rd, incoming, color, seed, hit_mask
-
-
-_PIX_ACTIVE_BIT = np.int32(1 << 30)
-
-_DIR_BINS = 96  # 6 dominant-axis half-spaces x 4x4 quantized minor axes
-
-
-def _direction_bin(rd):
-    """Quantize (3, R) directions into 96 angular bins: dominant axis +
-    sign (6 half-spaces) x a 4x4 grid over the two minor-axis slopes.
-
-    A finer binning than the 8 octants for the per-bounce coherence sort:
-    diffuse rays leaving one surface span a hemisphere, and at octant
-    granularity a 1024-ray kernel tile still unions ~14x more sub-treelet
-    work than its rays individually need (measured; see
-    docs/DESIGN_NOTES.md round 4).  ~20 VPU ops, no gathers."""
-    ax, ay, az = jnp.abs(rd[0]), jnp.abs(rd[1]), jnp.abs(rd[2])
-    dom_y = (ay >= ax) & (ay >= az)
-    dom_z = (az >= ax) & (az > ay) & ~dom_y
-    dom_x = ~dom_y & ~dom_z
-    d_dom = jnp.where(dom_x, rd[0], jnp.where(dom_y, rd[1], rd[2]))
-    a_dom = jnp.maximum(jnp.abs(d_dom), jnp.float32(1e-30))
-    u1 = jnp.where(dom_x, rd[1], jnp.where(dom_y, rd[2], rd[0])) / a_dom
-    u2 = jnp.where(dom_x, rd[2], jnp.where(dom_y, rd[0], rd[1])) / a_dom
-    q1 = jnp.clip(((u1 + 1.0) * 2.0).astype(jnp.int32), 0, 3)
-    q2 = jnp.clip(((u2 + 1.0) * 2.0).astype(jnp.int32), 0, 3)
-    half = (jnp.where(dom_x, 0, jnp.where(dom_y, 1, 2)) * 2
-            + (d_dom > 0).astype(jnp.int32))
-    return half * 16 + q1 * 4 + q2
-
-
-def _sort_bounces(override=None) -> int:
-    """How many leading bounces re-bin the ray state.
-
-    Resolution order: explicit override (RenderConfig.sort_bounces), then
-    the TPT_SORT_BOUNCES env var (sweep hook — read at TRACE time, so
-    changing it after a caller's jitted step compiled has no effect; set
-    RenderConfig.sort_bounces to retrace properly), then the default 2.
-
-    Each per-bounce binning sort costs ~1.3 ms at 512² (the payload
-    movement through the sort network dominates; operand grouping doesn't
-    change it — examples/micro_sort.py), while its intersect win decays
-    with bounce depth.  Sorting is order-restored at the end, so ANY value
-    gives the same image; the default 2 is the measured optimum on the
-    headline shape (sweep: 0->19.9, 1->17.0, 2->15.6, 3->16.7,
-    always->18.2 ms/frame)."""
-    import os
-
-    if override is not None:
-        return int(override)
-    return int(os.environ.get("TPT_SORT_BOUNCES", "2"))
-
-
-def _coherence_key(ro, rd, active, boxes):
-    """Per-ray binning key for the bounce sort: (nearest live treelet,
-    live-treelet count, 96-bin direction).
-
-    A cheap chunk-level (16-box) slab test predicts which treelets each
-    NEW ray can touch; grouping rays by (nearest treelet, live count)
-    makes kernel tiles share live sets — measured 2.7x less tile-union
-    eval volume than the (hit triangle, direction-bin) key on the
-    headline bounce-1 set, at ~0.1 ms/bounce of slab cost (round 4).
-    Escaping rays (empty live set) group together into count-0 tiles the
-    kernel skips entirely.  ro/rd: (3, R); boxes: (Mc, 8) chunk treelet
-    boxes; returns i32 (R,), 2^31-1 for inactive rays."""
-    from .pallas.mt_shade import _slab_entries
-    from .vecmath import EPSILON, INF
-
-    # taint the invariant box table with the rays' vma type (shard_map
-    # check_vma requires matching varying axes; numeric no-op)
-    boxes = boxes + ro[0:1, 0:1] * jnp.float32(0.0)
-    par = jnp.abs(rd) < EPSILON
-    inv = jnp.float32(1.0) / jnp.where(par, jnp.float32(1.0), rd)
-    entry = _slab_entries(boxes, ro, rd, par, inv)  # (Mc, R)
-    live = entry < INF
-    nlive = jnp.sum(live.astype(jnp.int32), axis=0)
-    nearest = jnp.argmin(entry, axis=0).astype(jnp.int32)
-    mc = boxes.shape[0]
-    nearest = jnp.where(nlive > 0, nearest, jnp.int32(mc))
-    key = (nearest * (mc + 1) + nlive) * _DIR_BINS + _direction_bin(rd)
-    return jnp.where(active, key, jnp.int32(2**31 - 1))
-
-
-def trace_rays_fused(scene, params, ro, rd, seed, *, max_bounces: int,
-                     intersector_phi_fn, shade_mat=None, env_patches=None,
-                     sort_bounces=None, sort_window=None,
-                     env_importance: bool = False):
-    """Sorted fused trace loop: the round-3 TPU fast path.
-
-    Same per-ray math and RNG streams as `trace_rays` — integer RNG
-    streams bit-exact, colors identical up to FMA-fusion ULPs (XLA
-    contracts dot/norm reduces differently for component-major arrays;
-    tests/test_mt_shade.py) — restructured around four measured wins
-    (docs/DESIGN_NOTES.md round 3):
-
-      * **Component-major state.** All vector state lives as (3, R) with R
-        along lanes: elementwise math runs at full VPU width, gathers write
-        transposed outputs directly, phi for the kernel assembles with no
-        transpose, and the per-bounce sort re-assembles by concatenation.
-        (The row-major loop paid ~2.2 ms/frame in layout-fixup fusions.)
-      * **Per-bounce ray binning.** After each of the first
-        `_sort_bounces()` bounces the live ray state is stable-sorted by
-        (hit triangle, outgoing-direction octant), so rays sharing a kernel
-        tile share treelet live-sets and terminated rays sink to the tail
-        where whole tiles park (measured: diffuse-bounce intersect
-        7.0/4.8/3.7 ms -> 3.3/0.5/0.4 ms).  Ray order is tracked in a
-        carried pixel index and restored with one final sort.
-      * **Deferred environment lookup.** A miss is always a ray's last
-        event, so the env term is added once after the loop instead of
-        per bounce — bit-identical summation order per ray.
-      * The per-bounce shade gather indices arrive clustered (rays were
-        sorted by the *previous* bounce's triangle), which the TPU gather
-        rewards (~2x measured for fully-sorted indices).
-
-    `intersector_phi_fn` maps a (10, R) transposed ray-feature matrix to a
-    Hit (mt_intersect_pallas2_phi / mt_intersect_stream2_phi).
-    Takes and returns row-major (R, 3) / (R,) arrays at the boundary.
-    Returns (incoming, seed) in the INPUT ray order.
-    """
-    R = ro.shape[0]
-    shade_mat = shade_mat if shade_mat is not None else pack_shade_material_rows(scene)
-    env_patches = (env_patches if env_patches is not None
-                   else envsample.pack_env_patches(scene.env.radiance))
-    n_tris = scene.packed.tri_pos.shape[0]
-
-    vz = (seed ^ seed).astype(jnp.uint32)
-    zf = vz.astype(jnp.float32)[None, :]
-    pix = jax.lax.broadcasted_iota(jnp.int32, (R, 1), 0)[:, 0] + vz.astype(
-        jnp.int32
-    )
-    ro = ro.T  # (3, R)
-    rd = rd.T
-
-    # Treelet boxes for the coherence-sort key (invariant, hoisted out of
-    # the bounce loop by XLA).  The key slab costs O(boxes x R), so the
-    # granule coarsens on big scenes to keep the box count <= 64 (chunk
-    # granularity up to 8K triangles, super-treelets beyond).
-    from .pallas.mt_intersect import _pad_to, treelet_boxes
-    from .pallas.mt_shade import CHUNK_TRIS
-
-    key_granule = CHUNK_TRIS
-    while n_tris > 64 * key_granule:
-        key_granule *= 2
-    key_boxes = treelet_boxes(
-        _pad_to(scene.packed.tri_pos,
-                -(-n_tris // key_granule) * key_granule, 0),
-        key_granule,
-    )
-
-    def make_body(with_sort: bool):
-        def body(state):
-            i, (ro, rd, incoming, color, seed, pixact) = state
-            active = pixact >= _PIX_ACTIVE_BIT
-            am = active[None, :]
-            hit = intersector_phi_fn(_ray_features_t(
-                jnp.where(am, ro, jnp.float32(1e30)),
-                jnp.where(am, rd, jnp.float32(0.0)),
-            ))
-            carry = (ro, rd, incoming, color, seed, active)
-            ro, rd, incoming, color, seed, active = bounce_shade_t(
-                scene, params, hit, carry, shade_mat=shade_mat
-            )
-            if with_sort:
-                # Bin for the next bounce by predicted intersection work
-                # (_coherence_key); terminated rays sink to the tail.  The
-                # sort is unstable (tie order arbitrary) — exactness rests
-                # on the final restore sort keying the unique pixel index.
-                key = _coherence_key(ro, rd, active, key_boxes)
-                pixact = (pixact & (_PIX_ACTIVE_BIT - 1)) | jnp.where(
-                    active, _PIX_ACTIVE_BIT, 0
-                )
-                ro, rd, color, incoming, seed, pixact = _sort_ray_state(
-                    key, ro, rd, color, incoming, seed, pixact,
-                    window=swin,
-                )
-            else:
-                pixact = (pixact & (_PIX_ACTIVE_BIT - 1)) | jnp.where(
-                    active, _PIX_ACTIVE_BIT, 0
-                )
-            return i + 1, (ro, rd, incoming, color, seed, pixact)
-
-        return body
-
-    def make_cond(bound):
-        def cond(state):
-            i, carry = state
-            return (i < bound) & jnp.any(carry[5] >= _PIX_ACTIVE_BIT)
-
-        return cond
-
-    init = (
-        ro,
-        rd,
-        jnp.zeros((3, R), jnp.float32) + zf,
-        jnp.ones((3, R), jnp.float32) + zf,
-        seed,
-        pix | _PIX_ACTIVE_BIT,
-    )
-    # Static split instead of a per-iteration lax.cond: the cond's identity
-    # branch copied the whole 15-column carry every bounce (measured
-    # 2.9 ms/frame).  Both loops keep the all-rays-terminated early exit.
-    n_sort = min(int(_sort_bounces(sort_bounces)), max_bounces)
-    swin = _sort_window(sort_window)
-    state = (jnp.int32(0), init)
-    if n_sort:
-        state = jax.lax.while_loop(
-            make_cond(n_sort), make_body(True), state
-        )
-    if n_sort < max_bounces:
-        state = jax.lax.while_loop(
-            make_cond(max_bounces), make_body(False), state
-        )
-    _, (ro, rd, incoming, color, seed, pixact) = state
-
-    # Deferred environment term: exactly the rays that terminated via a
-    # miss (active := hit_mask, so inactive <=> missed); rays still active
-    # after max_bounces get nothing, as in the reference
-    # (raytrace.wgsl:378-408).  rd/color still hold their miss-time values
-    # (updates are hit-gated).
-    missed = pixact < _PIX_ACTIVE_BIT
-    if env_importance:
-        # CDF importance sampling (the reference's shipped-disabled variant
-        # with the PDF correction, raytrace.wgsl:315-349, 398-404) deferred
-        # to one post-loop pass: a miss is always a ray's FINAL event and
-        # the carried seed is the miss-time seed, so the two uniform draws
-        # and the CDF inversion replay exactly as in the per-bounce plain
-        # loop (bounce_shade) — bit-identical streams, matched to
-        # FMA-fusion ULPs in radiance (tests/test_mt_shade.py).
-        seed_m, env_uv_rm = envsample.env_importance_sample(scene.env, seed)
-        pdf = envsample.env_pdf(scene.env, env_uv_rm)
-        # same mul/div order as bounce_shade: radiance * intensity / pdf
-        env_term = _env_radiance_packed_t(
-            env_patches, (scene.env.height, scene.env.width), env_uv_rm.T
-        ) * params.env_intensity / pdf[None, :]
-        seed = jnp.where(missed, seed_m, seed)
-    else:
-        env_uv = _env_uv_from_ray_t(rd, params.env_rotation)
-        env_term = _env_radiance_packed_t(
-            env_patches, (scene.env.height, scene.env.width), env_uv
-        ) * params.env_intensity
-    incoming = incoming + jnp.where(missed[None, :], env_term * color, 0.0)
-
-    # Restore the caller's ray order (one 5-operand sort by pixel index;
-    # keys are unique, so an unstable sort is exact and compiles faster).
-    # Windowed binning sorts never move a ray out of its window and the
-    # initial order is the iota, so window w holds exactly pixel indices
-    # [w*W, (w+1)*W) and the restore sorts the same windows.
-    pixkey = pixact & (_PIX_ACTIVE_BIT - 1)
-    seed_i = jax.lax.bitcast_convert_type(seed, jnp.int32)
-    _, i0, i1, i2, seed_i = _windowed_sort(
-        (pixkey, incoming[0], incoming[1], incoming[2], seed_i),
-        swin if n_sort else 0,
-    )
-    return (
-        jnp.stack([i0, i1, i2], axis=1),
-        jax.lax.bitcast_convert_type(seed_i, jnp.uint32),
-    )
-
-
-def _any_vma(*xs):
-    """True if any argument carries value-varying axes (i.e. we are being
-    traced inside shard_map with check_vma): Mosaic kernels cannot be
-    traced with vma-typed operands, so the fused Pallas path must yield to
-    the XLA formulation there (same math, parity-tested)."""
-    if not hasattr(jax, "typeof"):
-        return False
-    for x in xs:
-        if x is None:
-            continue
-        try:
-            if getattr(jax.typeof(x), "vma", None):
-                return True
-        except TypeError:
-            continue
-    return False
-
-
-def blocked_pixel_grid(height: int, width: int):
-    """Pixel coordinates in screen-block order: consecutive rays form
-    bh x bw screen blocks (largest power-of-two divisors <= 32), so each
-    1024-ray kernel tile covers a compact screen region instead of 2-4
-    full-width pixel rows.  Measured on the headline shape: primary-bounce
-    intersect 3.0 -> 2.2 ms purely from the tighter per-tile treelet
-    unions.  Returns (xs, ys) as flat (H*W,) i32; `unblock_image` inverts
-    the layout."""
-    bh = next(b for b in (32, 16, 8, 4, 2, 1) if height % b == 0)
-    bw = next(b for b in (32, 16, 8, 4, 2, 1) if width % b == 0)
-    shape = (height // bh, width // bw, bh, bw)
-    ys = (
-        jax.lax.broadcasted_iota(jnp.int32, shape, 0) * bh
-        + jax.lax.broadcasted_iota(jnp.int32, shape, 2)
-    )
-    xs = (
-        jax.lax.broadcasted_iota(jnp.int32, shape, 1) * bw
-        + jax.lax.broadcasted_iota(jnp.int32, shape, 3)
-    )
-    return xs.reshape(-1), ys.reshape(-1)
-
-
-def unblock_image(flat, height: int, width: int):
-    """(H*W, C) in blocked_pixel_grid order -> (H, W, C) row-major."""
-    bh = next(b for b in (32, 16, 8, 4, 2, 1) if height % b == 0)
-    bw = next(b for b in (32, 16, 8, 4, 2, 1) if width % b == 0)
-    c = flat.shape[-1]
-    img = flat.reshape(height // bh, width // bw, bh, bw, c)
-    return jnp.transpose(img, (0, 2, 1, 3, 4)).reshape(height, width, c)
 
 
 def render_frame(
@@ -948,9 +347,6 @@ def render_frame(
     row_offset=0,
     full_height: int | None = None,
     seed_salt=None,
-    sort_bounces: int | None = None,
-    sort_window: int | None = None,
-    tile_rays: int | None = None,
 ):
     """Render one progressive frame at (height, width); returns (H, W, 3) f32.
 
@@ -982,25 +378,10 @@ def render_frame(
     if full_height is None:
         full_height = height
     R = width * height
-    kind = resolve_intersector(intersector, scene.packed.tri_pos.shape[0])
-    # Under shard_map (vma-typed operands) the fused path still works on
-    # TPU — jax 0.9 strips vma for the Mosaic kernel trace (verified
-    # on-chip, sharded == unsharded bit-exact); only the CPU interpreter
-    # lowering trips the checker, so it falls back to the XLA loop there.
-    fused = (kind in ("mt_pallas", "mt_stream")
-             and not differentiable
-             and (jax.default_backend() == "tpu"
-                  or not _any_vma(row_offset, seed_salt, params.frame)))
-    if fused:
-        # Fused sorted fast path (trace_rays_fused): rays laid out in
-        # screen-block order so kernel tiles cover compact regions.
-        xs, ys = blocked_pixel_grid(height, width)
-        ys = ys + jnp.asarray(row_offset, jnp.int32)
-    else:
-        xs = jax.lax.broadcasted_iota(jnp.int32, (height, width), 1)
-        ys = jax.lax.broadcasted_iota(
-            jnp.int32, (height, width), 0
-        ) + jnp.asarray(row_offset, jnp.int32)
+    xs = jax.lax.broadcasted_iota(jnp.int32, (height, width), 1)
+    ys = jax.lax.broadcasted_iota(
+        jnp.int32, (height, width), 0
+    ) + jnp.asarray(row_offset, jnp.int32)
     uv = jnp.stack(
         [
             xs.astype(jnp.float32) / np.float32(width),
@@ -1031,22 +412,6 @@ def render_frame(
     # taint the accumulator init with seed's vma type (see trace_rays)
     zf0 = (seed ^ seed).astype(jnp.float32)[:, None]
 
-    if fused:
-        from .pallas.mt_shade import (
-            mt_intersect_pallas2_phi,
-            mt_intersect_stream2_phi,
-        )
-
-        tri_pos = scene.packed.tri_pos
-        interp = jax.default_backend() != "tpu"
-        base = (mt_intersect_stream2_phi if kind == "mt_stream"
-                else mt_intersect_pallas2_phi)
-        intersector_phi_fn = lambda phi_t: base(tri_pos, phi_t,
-                                                interpret=interp,
-                                                tile_rays=tile_rays)
-        shade_mat = pack_shade_material_rows(scene)
-        env_patches = envsample.pack_env_patches(scene.env.radiance)
-
     def sample_body(s, carry):
         seed, acc = carry
         if blue_noise is not None:
@@ -1060,20 +425,11 @@ def render_frame(
         seed, o, d = camera_ops.apply_dof(
             seed, base_o, base_d, params.camera, resolution, aa_uniforms=aa
         )
-        if fused:
-            light, seed = trace_rays_fused(
-                scene, params, o, d, seed, max_bounces=max_bounces,
-                intersector_phi_fn=intersector_phi_fn, shade_mat=shade_mat,
-                env_patches=env_patches, sort_bounces=sort_bounces,
-                sort_window=sort_window,
-                env_importance=env_importance,
-            )
-        else:
-            light, seed = trace_rays(
-                scene, params, o, d, seed, max_bounces=max_bounces,
-                env_importance=env_importance, differentiable=differentiable,
-                intersector=intersector,
-            )
+        light, seed = trace_rays(
+            scene, params, o, d, seed, max_bounces=max_bounces,
+            env_importance=env_importance, differentiable=differentiable,
+            intersector=intersector,
+        )
         return seed, acc + light
 
     _, acc = jax.lax.fori_loop(
@@ -1081,8 +437,6 @@ def render_frame(
         (seed, jnp.zeros((R, 3), jnp.float32) + zf0),
     )
     color = acc / np.float32(samples_per_frame)
-    if fused:
-        return unblock_image(color, height, width)
     return color.reshape(height, width, 3)
 
 

@@ -9,19 +9,17 @@ bounce into stages (SURVEY.md §7 layer C, BASELINE.json configs[3]):
      tail, live rays group by direction octant + origin cell,
   2. *intersect*: `lax.map` over fixed-size chunks, each chunk running its
      own BVH while_loop.  A chunk of terminated rays exits after one check;
-     a chunk of coherent rays shares a similar traversal depth.  This is the
-     TPU analogue of wavefront queue compaction: static shapes, but the
-     worst-lane cost is paid per chunk instead of per frame,
+     a chunk of coherent rays shares a similar traversal depth.  This is a
+     static-shape analogue of wavefront queue compaction: the worst-lane
+     cost is paid per chunk instead of per frame,
   3. *shade*: the exact megakernel bounce math (trace.bounce_shade), so
      radiance and RNG streams are IDENTICAL to the megakernel — sorting
      only permutes lanes, every per-ray stream is preserved.
 
-Status (measured, docs/DESIGN_NOTES.md): on TPU the per-bounce argsort +
-state permutation swamps the coherence benefit — the megakernel is ~4
-orders of magnitude faster there.  This module is the semantically-exact
-wavefront formulation (bit-identical images), verified on CPU, kept as the
-capability surface for deep-bounce configs and as the base for a future
-in-kernel compaction design; do not dispatch it on TPU.
+Status: no render path dispatches this module; it is the semantically
+exact wavefront formulation (bit-identical images), verified on the CPU,
+kept as the base for ray compaction on the GPU (ROADMAP R6).  Its speed on
+the GPU is not measured.
 """
 
 from __future__ import annotations

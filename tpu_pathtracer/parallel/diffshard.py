@@ -6,11 +6,8 @@ bands over the 'tiles' axis, each shard runs the differentiable trace +
 backward on its band, and per-shard gradients are all-reduced (the psum
 reverse-mode inserts for axis-invariant inputs) — XLA's latency-hiding
 scheduler is responsible for overlapping that collective with the
-remaining backward computation.  Honesty note: the overlap itself is
-UNOBSERVED in this environment — the only real device is a single chip
-(collectives are no-ops) and the virtual CPU mesh does not model ICI —
-so it is a property delegated to XLA, not a measured claim; profile on a
-real multi-chip slice before citing it (r1 verdict 'weak 9').
+remaining backward computation.  The overlap is not measured: it is a
+property delegated to XLA until a four-card trace shows it.
 
 Exactness: the sharded loss/grad equals the unsharded one (global pixel
 coordinates + seeds per shard; sums decompose exactly over row bands), so

@@ -2,19 +2,20 @@
 
 The reference is a single-queue, single-device browser app with no
 communication backend of any kind (SURVEY.md §2 'Parallelism &
-communication'); this module is the net-new TPU-native scaling layer: a 2-D
+communication'); this module is the net-new scaling layer: a 2-D
 `jax.sharding.Mesh` whose axes are
 
   * ``tiles``   — the image's row-tile axis (data parallelism over pixels);
     each shard renders a contiguous horizontal band and the final image is
-    assembled by the output sharding (an all-gather riding ICI),
+    assembled by the output sharding (an all-gather),
   * ``samples`` — the Monte-Carlo sample axis; each shard renders the full
     band with a decorrelated RNG stream and partial radiance is combined with
     a ``psum``.
 
-Multi-host runs use the same mesh over ``jax.devices()`` after
-``jax.distributed.initialize`` — shard_map + XLA place the collectives on ICI
-within a slice and DCN across hosts automatically.
+The cards of one host are joined all to all by NVLink, so every pair is
+equally close and the mesh reshapes ``jax.devices()`` in its flat order;
+XLA hands the collectives to NCCL.  Multi-process runs use the same mesh
+after ``jax.distributed.initialize``.
 """
 
 from __future__ import annotations

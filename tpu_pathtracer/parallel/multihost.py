@@ -1,10 +1,11 @@
 """Multi-host orchestration: jax.distributed init + host-local IO helpers.
 
-Single-host multi-chip needs nothing special — `make_mesh()` spans all local
-devices.  Across hosts (a TPU pod slice), every process must:
+Single-host multi-card needs nothing special — `make_mesh()` spans all local
+devices.  Across processes or hosts, every process must:
 
-  1. call `initialize()` (rendezvous via the coordinator; on Cloud TPU the
-     arguments are auto-detected from the metadata server),
+  1. call `initialize()` with the coordinator's address (`host:port`), the
+     process count and its own id — nothing on a plain GPU machine tells
+     JAX about a cluster,
   2. build the SAME global mesh from `jax.devices()` (all processes see the
      global device list),
   3. feed sharded inputs via `host_local_target()` (each host materializes
@@ -13,9 +14,9 @@ devices.  Across hosts (a TPU pod slice), every process must:
 
 The sharded render/grad steps (sharded.py, diffshard.py) are already
 expressed with shard_map over named axes, so XLA places the psum/all-gather
-collectives on ICI within a slice and DCN across slices automatically —
-there is no separate "communication backend" to configure (the reference
-has no multi-device capability at all; SURVEY.md §2).
+collectives itself (NCCL on the GPU) — there is no separate
+"communication backend" to configure (the reference has no multi-device
+capability at all; SURVEY.md §2).
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Sharded progressive rendering via shard_map over the ('tiles','samples') mesh.
 
-TPU-native replacement for the reference's single compute queue
+The replacement for the reference's single compute queue
 (SURVEY.md §2 'Parallelism & communication'): the pixel grid shards by row
 bands over the ``tiles`` axis and the per-frame sample budget shards over the
 ``samples`` axis.  Per-shard partial radiance is combined with a ``psum`` over
-``samples`` (ICI all-reduce); the row-sharded accumulation buffer stays
+``samples`` (an all-reduce); the row-sharded accumulation buffer stays
 resident and sharded across frames, and materializes as one global array only
 when the host reads it (XLA inserts the all-gather).
 
@@ -139,7 +139,7 @@ def make_sharded_passes(
     blue_noise=None,
 ):
     """Separately-jitted (raytrace, accumulate) sharded passes for per-pass
-    timing (round-3 verdict item 7): `enable_timing` on a sharded Renderer
+    timing: `enable_timing` on a sharded Renderer
     measures these with profiler device spans (render/timing.time_device),
     while the untimed path keeps the fused `make_sharded_frame_step`.
 
@@ -206,12 +206,7 @@ def make_sharded_render_all(
 
     ``render_all(scene, params0, n_frames=frames)``: the frame count is a
     TRACED dynamic loop bound, so one compiled program serves every frame
-    count.  Round 4's "sharded program compiles >20 min" was mostly this
-    function being rebuilt per frame count by the scaling benchmark (four
-    static whole-budget compiles per config — the same bug the unsharded
-    bench fixed in round 3); the sharded FRAME STEP itself compiles and
-    runs op-for-op identically to the unsharded one at tiles=1
-    (examples/profile_sharded.py, docs/DESIGN_NOTES.md round 5)."""
+    count."""
     step = make_sharded_frame_step(
         mesh,
         width=width,

@@ -9,27 +9,6 @@ from .resize import bilinear_resize
 from .tonemap import tonemap
 
 
-def _denoise_dispatch(img, config: PostConfig):
-    """Pallas stencil kernel on TPU (5-40x faster, exact same output);
-    jnp shift-based fallback elsewhere or for unsupported widths."""
-    import jax
-
-    if jax.default_backend() == "tpu":
-        from ..ops.pallas.denoise import smart_denoise_pallas, supported
-
-        if supported(img.shape[0], img.shape[1],
-                     k_sigma=config.denoise_k_sigma, sigma=config.denoise_sigma):
-            return smart_denoise_pallas(
-                img, sigma=config.denoise_sigma,
-                k_sigma=config.denoise_k_sigma,
-                threshold=config.denoise_threshold,
-            )
-    return smart_denoise(
-        img, sigma=config.denoise_sigma, k_sigma=config.denoise_k_sigma,
-        threshold=config.denoise_threshold,
-    )
-
-
 def postprocess(img, config: PostConfig, display_height: int | None = None, display_width: int | None = None):
     """img: (h, w, 3) linear radiance -> display-ready (H, W, 3) in [0,1]-ish.
 
@@ -46,6 +25,9 @@ def postprocess(img, config: PostConfig, display_height: int | None = None, disp
     if display_height is not None and display_width is not None:
         out = bilinear_resize(out, display_height, display_width)
     if config.denoise:
-        out = _denoise_dispatch(out, config)
+        out = smart_denoise(
+            out, sigma=config.denoise_sigma, k_sigma=config.denoise_k_sigma,
+            threshold=config.denoise_threshold,
+        )
     out = tonemap(out, config.tonemap)
     return out

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -27,12 +28,18 @@ _ACES_M2 = np.array(
 )
 
 
+def _mat3(color, m):
+    """color @ m.T in true float32: a float32 matmul may otherwise run in
+    TF32 on the GPU."""
+    return jnp.matmul(color, m.T, precision=jax.lax.Precision.HIGHEST)
+
+
 def aces_tonemap(color):
     """ACES fitted curve incl. the final 1/2.2 gamma (fullscreen.wgsl:88-103)."""
-    v = color @ _ACES_M1.T
+    v = _mat3(color, _ACES_M1)
     a = v * (v + np.float32(0.0245786)) - np.float32(0.000090537)
     b = v * (np.float32(0.983729) * v + np.float32(0.4329510)) + np.float32(0.238081)
-    out = (a / b) @ _ACES_M2.T
+    out = _mat3(a / b, _ACES_M2)
     return jnp.clip(out, 0.0, 1.0) ** np.float32(1.0 / 2.2)
 
 

@@ -3,8 +3,8 @@
 The reference marshals array-of-struct GPU buffers whose layouts are derived
 from the WGSL struct declarations (Triangle / Material / BVHNode,
 reference: src/passes/shaders/raytrace.wgsl:31-64, packed by webgpu-utils in
-src/passes/raytrace.ts:89-167).  A TPU wants the transpose: plain
-struct-of-arrays with static shapes so every field is a dense, tileable
+src/passes/raytrace.ts:89-167).  Vectorized XLA wants the transpose:
+plain struct-of-arrays with static shapes so every field is a dense
 vector.  All arrays here are padded to fixed sizes so recompilation only
 happens when the padded capacity changes, not per scene edit.
 
@@ -135,8 +135,7 @@ class PackedGeometry:
                  large-scene traversal layout (ops/intersect.bvh_fat_intersect)
 
     Triangle rows are laid out in BVH-DFS *leaf order* (spatially coherent),
-    so fixed-size row chunks are tight treelets — the culling granularity of
-    the Pallas MT kernel (ops/pallas/mt_intersect.py).  `nodes` leaf
+    so fixed-size row chunks are tight treelets.  `nodes` leaf
     pointers index the reordered rows; `tri_perm` maps a Hit.tri back to
     the `Triangles`/`FlatBVH` original order.
 

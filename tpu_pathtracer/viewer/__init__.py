@@ -3,8 +3,8 @@
 The reference is an interactive browser app: a Tweakpane panel binds every
 renderer parameter, OrbitControls drive the camera, the canvas shows the
 progressive render live, and fps / per-pass timings are on screen
-(reference: src/main.ts:78-400).  This package is the TPU-native
-counterpart: the render loop runs server-side next to the chips, and a
+(reference: src/main.ts:78-400).  This package is the server-side
+counterpart: the render loop runs next to the GPU, and a
 dependency-free HTTP server streams progressive frames + state to a small
 browser page with the same control surface.
 

@@ -13,7 +13,7 @@ Endpoints (all JSON unless noted):
   POST /upload/env    raw .hdr body → replace environment
 
 The server binds 127.0.0.1 by default: the render loop runs next to the
-TPUs; the page is just a remote control.
+GPU; the page is just a remote control.
 """
 
 from __future__ import annotations

@@ -20,7 +20,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ..config import PostConfig, RenderConfig, ShardConfig, Tonemap
+from ..config import INTERSECTORS, PostConfig, RenderConfig, ShardConfig, Tonemap
 from ..render.renderer import Renderer
 from ..render.timing import RollingAverage
 from ..scene.envmap import gradient_sky
@@ -61,7 +61,7 @@ PARAM_SPEC = [
      "label": "Tonemap"},                                      # main.ts:337-349
     {"name": "timing", "kind": "bool", "label": "Per-pass timing"},
     {"name": "intersector", "kind": "select",
-     "options": ["auto", "mt", "mt_pallas", "mt_stream", "bvh", "bvh8"], "label": "Intersector"},
+     "options": list(INTERSECTORS), "label": "Intersector"},
     {"name": "blue_noise", "kind": "bool", "label": "Blue-noise AA"},
 ]
 
